@@ -1,11 +1,12 @@
 """Device RLE backtrack decode vs the host packed-plane walkers.
 
-rle_decode_band / rle_decode_full must reproduce, run for run, what
+rle_decode_band must reproduce, run for run, what
 ops/dp_common.traceback_*_packed decode from the same packed planes
 (themselves twins of the reference backtrack, SW.cpp:1137-1195).  Planes
-come from the Pallas kernels in interpret mode; problems are random
-mutated copies so every op kind (match/replace runs, deletes up to the
-band edge, insert chains, X-drop early exits, score<=0 walks) appears.
+come from the Pallas kernels in interpret mode, in their problem-minor
+layout; problems are random mutated copies so every op kind
+(match/replace runs, deletes up to the band edge, insert chains, X-drop
+early exits, score<=0 walks) appears.
 """
 import os
 import random
@@ -17,7 +18,7 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 from yaha_tpu.ops import dp_common, sw_pallas  # noqa: E402
 from yaha_tpu.ops.decode_jax import (RLE_LEN_MASK, RLE_OP_SHIFT,  # noqa: E402
-                                     rle_decode_band, rle_decode_full)
+                                     rle_decode_band)
 
 KW = dict(go=2, ge=1, rc=3, ms=1, max_gap=50, max_intron=100, x_cutoff=25)
 
@@ -45,7 +46,7 @@ def _mutate(rng, codes, n_sub, n_indel):
 
 def test_rle_decode_band_matches_host_walker():
     rng = random.Random(20260819)
-    n, ql = sw_pallas.TILE, 48
+    n, ql = 1024, 48
     bw2 = 2 * 4
     w = 2 * bw2 + 1
     rl = ql + 2 * bw2
@@ -64,7 +65,7 @@ def test_rle_decode_band_matches_host_walker():
         rlens[i] = rn
     out = sw_pallas.extension_forward_pallas(
         q, qlens, r, rlens, band_width=4, interpret=True, **KW)
-    bt = np.asarray(out["bt"])
+    bt = np.asarray(sw_pallas.problem_major(out["bt"]))
     score = np.asarray(out["score"])
     maxi = np.asarray(out["maxi"])
     maxj = np.asarray(out["maxj"])
@@ -72,7 +73,7 @@ def test_rle_decode_band_matches_host_walker():
     cap = 256
     rle, n_ops = rle_decode_band(
         out["bt"], out["maxi"], out["maxj"], out["score"] > 0,
-        cap=cap, max_iters=2 * ql + w + 16)
+        2 * ql + w + 16, cap=cap)
     rle = np.asarray(rle)
     n_ops = np.asarray(n_ops)
 
@@ -92,7 +93,7 @@ def test_rle_decode_band_matches_host_walker():
 
 def test_rle_decode_band_matches_anchored_banded_walker():
     rng = random.Random(7)
-    n, ql, rl = sw_pallas.TILE, 40, 48
+    n, ql, rl = 1024, 40, 48
     wband = 32
     q = np.zeros((n, ql), np.uint8)
     r = np.full((n, rl), 255, np.uint8)
@@ -120,14 +121,14 @@ def test_rle_decode_band_matches_anchored_banded_walker():
     kw = dict(go=2, ge=1, rc=3, ms=1, max_gap=50, max_intron=100)
     out = sw_pallas.anchored_forward_pallas_banded(
         q, qlens, r, rlens, lbw, rbw, wband=wband, interpret=True, **kw)
-    bt_b = np.asarray(out["bt_b"])
+    bt_b = np.asarray(sw_pallas.problem_major(out["bt_b"]))
 
     cap = 256
     y0 = qlens.astype(np.int32)
     x0 = (rlens - qlens + lbw).astype(np.int32)
     rle, n_ops = rle_decode_band(
         out["bt_b"], y0, x0, np.ones(n, bool),
-        cap=cap, max_iters=2 * ql + wband + 16)
+        2 * ql + wband + 16, cap=cap)
     rle = np.asarray(rle)
     n_ops = np.asarray(n_ops)
 
@@ -142,51 +143,11 @@ def test_rle_decode_band_matches_anchored_banded_walker():
         assert got == want, (i, got, want)
 
 
-def test_rle_decode_full_matches_anchored_walker():
-    rng = random.Random(99)
-    n, ql, rl = sw_pallas.TILE, 32, 40
-    q = np.zeros((n, ql), np.uint8)
-    r = np.full((n, rl), 255, np.uint8)
-    qlens = np.zeros(n, np.int64)
-    rlens = np.zeros(n, np.int64)
-    lbw = np.zeros(n, np.int64)
-    rbw = np.zeros(n, np.int64)
-    for i in range(n):
-        qn = rng.randrange(1, ql + 1)
-        base = [rng.randrange(4) for _ in range(qn)]
-        mut = _mutate(rng, base, rng.randrange(0, 4), rng.randrange(0, 3))
-        rn = max(1, min(rl, len(mut)))
-        q[i, :qn] = base
-        r[i, :rn] = (mut + [rng.randrange(4) for _ in range(rl)])[:rn]
-        qlens[i] = qn
-        rlens[i] = rn
-        lbw[i] = max(6, qn - rn + 2)
-        rbw[i] = max(6, rn - qn + 2)
-    kw = dict(go=2, ge=1, rc=3, ms=1, max_gap=50, max_intron=100)
-    out = sw_pallas.anchored_forward_pallas(
-        q, qlens, r, rlens, lbw, rbw, interpret=True, **kw)
-    bt = np.asarray(out["bt"])
-
-    cap = 256
-    rle, n_ops = rle_decode_full(
-        out["bt"], qlens.astype(np.int32), rlens.astype(np.int32),
-        np.ones(n, bool), cap=cap, max_iters=ql + rl + 16)
-    rle = np.asarray(rle)
-    n_ops = np.asarray(n_ops)
-
-    for i in range(n):
-        want = dp_common.traceback_anchored_packed(
-            bt[i], qlens[i], rlens[i])
-        got = _items_from_rle(rle[i], n_ops[i])
-        got.reverse()
-        assert got == want, (i, got, want)
-
-
 def test_rle_long_runs_cap_and_merge():
     """Runs longer than JUMP_CAP (255) take several jumps and re-merge
     on emit: a clean 400-base extension must decode to one M run."""
     rng = random.Random(5)
-    n, ql = sw_pallas.TILE, 400
+    n, ql = 32, 400
     bw2 = 2 * 4
     rl = ql + 2 * bw2
     q = np.zeros((n, ql), np.uint8)
@@ -202,7 +163,7 @@ def test_rle_long_runs_cap_and_merge():
         q, qlens, r, rlens, band_width=4, interpret=True, **KW)
     rle, n_ops = rle_decode_band(
         out["bt"], out["maxi"], out["maxj"], out["score"] > 0,
-        cap=64, max_iters=2 * ql + 64)
+        2 * ql + 64, cap=64)
     rle = np.asarray(rle)
     n_ops = np.asarray(n_ops)
     assert n_ops[0] == 1

@@ -77,8 +77,8 @@ def test_wrapped_flags_exact_at_tier_capacity():
     """The phantom-quirk wrapped flags must be EXACT whenever a row's
     total fits the capacity tier — including windows whose expansion
     lies at the very end of the buffer.  Regression: the original
-    segment_max formulation produced wrong flags on TPU at large batch
-    shapes, and tier-1 flags silently under-flagged windows whose whole
+    segment_max formulation produced wrong flags on an accelerator at
+    large batch shapes, and tier-1 flags silently under-flagged windows whose whole
     run fell beyond the capacity cutoff (fixed by the prefix-sum
     formulation + tier-2 flags for overflow rows, round 4)."""
     import jax.numpy as jnp

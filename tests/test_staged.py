@@ -10,8 +10,8 @@ backends and result formats:
   * xla backend — jit DP twins, eo/idc planes
   * CLI --engine batch-xla (staged is the default frontend)
 
-The Pallas packed formats are covered on real TPU by
-tests/test_tpu_parity.py.
+The pallas backend runs here with its kernels in interpret mode; the
+compiled GPU kernels are covered on the card by tests/test_gpu_parity.py.
 """
 import gzip
 import os
@@ -132,13 +132,12 @@ def test_staged_xla_backend_parity(scratch, env):
     assert (sm, nr) == (sm0, nr0)
 
 
-def test_staged_pallas_rle_parity_interpret(scratch, env):
+def test_staged_pallas_rle_parity_interpret(scratch, env, monkeypatch):
     """The full staged-pallas path — Pallas kernels (interpret mode),
     on-device RLE backtrack decode (ops/decode_jax.py), and the native
     FMT_RLE apply — is byte-identical to the per-read native pipeline.
     Also A/Bs the RLE path against the plane-transfer path (YT_STAGED_RLE
-    = 0).  A handful of reads: interpret mode executes the grid in
-    Python.  On-chip coverage: tests/test_tpu_parity.py."""
+    = 0).  On-card coverage: tests/test_gpu_parity.py."""
     from yaha_tpu.native import host
     from yaha_tpu.models.staged import StagedAligner
     genome, index = env
@@ -151,18 +150,67 @@ def test_staged_pallas_rle_parity_interpret(scratch, env):
                                                aa, n_threads=2)
     texts = {}
     for rle in ("1", "0"):
-        os.environ["YT_PALLAS_INTERPRET"] = "1"
-        os.environ["YT_STAGED_RLE"] = rle
-        try:
-            st = StagedAligner(aa, genome, index, backend="pallas",
-                               n_threads=2)
-            texts[rle], sm, nr = st.align_chunk(pr, 0, n)
-        finally:
-            del os.environ["YT_PALLAS_INTERPRET"]
-            del os.environ["YT_STAGED_RLE"]
+        monkeypatch.setenv("YT_STAGED_RLE", rle)
+        st = StagedAligner(aa, genome, index, backend="pallas",
+                           n_threads=2, interpret=True)
+        texts[rle], sm, nr = st.align_chunk(pr, 0, n)
         assert (sm, nr) == (sm0, nr0)
     assert texts["1"] == ref
     assert texts["0"] == ref
+
+
+def test_staged_pallas_routes_wide_gaps_to_twin(scratch, env,
+                                                monkeypatch):
+    """Gap problems whose band tier exceeds GAP_WBAND_MAX take the
+    full-matrix XLA twin instead of the band-relative kernel; the split
+    shows in stats and the bytes stay identical to the native engine.
+    (The cap is lowered so the small test reads produce both classes.)"""
+    from yaha_tpu.native import host
+    from yaha_tpu.models import staged
+    genome, index = env
+    aa = _make_aa(scratch, "readsC_1kb.fasta")
+    aa.word_len = index.word_len
+    aa.max_hits = min(aa.max_hits, index.max_hits)
+    pr = _parsed(scratch, aa)
+    n = min(pr.n, 16)
+    ref, _, sm0, nr0 = host.align_batch_native(pr, 0, n, genome, index,
+                                               aa, n_threads=2)
+    monkeypatch.setattr(staged, "GAP_WBAND_MAX", 32)
+    st = staged.StagedAligner(aa, genome, index, backend="pallas",
+                              n_threads=2, inline_small=False,
+                              interpret=True)
+    text, sm, nr = st.align_chunk(pr, 0, n)
+    assert text == ref
+    assert (sm, nr) == (sm0, nr0)
+    s = st.stats
+    assert s["gap_banded"] > 0 and s["gap_fallback"] > 0, s
+    assert s["gap_banded"] + s["gap_fallback"] == s["gap_problems"]
+    assert s["gap_w32"] == s["gap_banded"]
+
+
+def test_staged_pallas_refuses_cpu(env):
+    """Without a GPU the pallas backend refuses to start rather than
+    fall back to interpret mode or the CPU."""
+    from yaha_tpu.config import AlignmentArgs
+    from yaha_tpu.models.staged import StagedAligner
+    genome, index = env
+    with pytest.raises(RuntimeError, match="needs a GPU"):
+        StagedAligner(AlignmentArgs(), genome, index, backend="pallas")
+
+
+def test_cli_batch_pallas_without_gpu_exits(scratch):
+    """--engine batch-pallas exits non-zero with a message when JAX's
+    default backend is not a GPU; nothing runs on the CPU instead."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    r = subprocess.run(
+        [sys.executable, "-m", "yaha_tpu.cli", "-x",
+         "testgen.X11_01_65525S", "-q", "readsA_100bp.fasta",
+         "--engine", "batch-pallas", "-osh", "no_gpu.sam"],
+        cwd=scratch, env=env, capture_output=True, timeout=600)
+    assert r.returncode != 0
+    assert b"needs a GPU" in r.stderr
+    assert not os.path.exists(os.path.join(scratch, "no_gpu.sam"))
 
 
 def test_staged_cli_default_for_jax_engines(scratch):

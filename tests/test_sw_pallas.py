@@ -1,24 +1,27 @@
-"""Pallas kernels (interpret mode) vs their XLA twins.
+"""Pallas kernels (interpret mode) vs their XLA twins and the native DP.
 
-On-chip parity is checked separately on real TPU hardware; interpret mode
-exercises the same kernel Python against the jitted XLA reference
-implementations, which are themselves oracle-parity tested.
-Sizes are tiny: interpret mode executes the grid serially in Python.
+The compiled GPU kernels are checked on the card by the `gpu`-marked
+tests (tests/test_gpu_parity.py) and chip_smoke.py; interpret mode runs
+the same kernel bodies here against the jitted XLA twins and the native
+host DP, which are themselves oracle-parity tested.
 
-The Pallas kernels emit a packed 1-byte backtrack plane (op plus gap-run
-continue bits); unpack_backtrack reconstructs the XLA twins' (eo, idc)
-run-length arrays exactly, which is what these tests assert, alongside
-decoded-alignment equality through the packed walkers (python + native).
+The kernels emit a packed 1-byte backtrack plane (op plus gap-run
+continue bits) in problem-minor layout; problem_major + unpack_backtrack
+reconstruct the twins' (eo, idc) run-length arrays exactly.  Rows past a
+problem's last DP row are never written by the kernels (no walk reads
+them), so plane comparisons cover rows [0, maxi] for extensions and
+[0, qlen] for gap fills.
 """
 import numpy as np
 import pytest
 
 from yaha_tpu.ops import sw_batch, sw_pallas, dp_common
+from yaha_tpu.native import host as native_host
 
 KW = dict(go=5, ge=2, rc=3, ms=1, max_gap=50, max_intron=50)
 
 
-def _bands(rng, n, qlens, rlens):
+def _bands(n, qlens, rlens):
     lbw = np.zeros(n, np.int64)
     rbw = np.zeros(n, np.int64)
     for k in range(n):
@@ -33,72 +36,36 @@ def _bands(rng, n, qlens, rlens):
     return lbw, rbw
 
 
-def test_anchored_pallas_matches_xla():
-    rng = np.random.default_rng(7)
-    n, ql, rl = sw_pallas.TILE, 10, 12
-    q = rng.integers(0, 5, (n, ql)).astype(np.uint8)
-    r = rng.integers(0, 5, (n, rl)).astype(np.uint8)
-    qlens = rng.integers(1, ql + 1, n).astype(np.int64)
-    rlens = rng.integers(1, rl + 1, n).astype(np.int64)
-    lbw, rbw = _bands(rng, n, qlens, rlens)
-    ref = sw_batch.batched_anchored_forward(q, qlens, r, rlens, lbw, rbw,
-                                            **KW)
-    mine = sw_pallas.anchored_forward_pallas(q, qlens, r, rlens, lbw, rbw,
-                                             interpret=True, **KW)
-    np.testing.assert_array_equal(np.asarray(ref["score"]),
-                                  np.asarray(mine["score"]), err_msg="score")
-    # The Pallas kernel only sweeps the union of per-problem bands per
-    # row; cells outside every band are never written (traceback walks
-    # in-band cells only).  Compare unpacked eo/idc on the in-band mask,
-    # which is everything the traceback (and the XLA twin's consumers)
-    # can read.
-    eo_u, idc_u = sw_pallas.unpack_backtrack(np.asarray(mine["bt"]), "up")
-    ii = np.arange(ql + 1)[None, :, None]
-    jj = np.arange(rl + 1)[None, None, :]
-    band = ((ii <= qlens[:, None, None]) & (jj <= rlens[:, None, None])
-            & (jj >= ii - lbw[:, None, None])
-            & (jj <= ii + rbw[:, None, None]))
-    for key, mine_arr in (("eo", eo_u), ("idc", idc_u)):
-        a = np.asarray(ref[key])
-        np.testing.assert_array_equal(np.where(band, a, 0),
-                                      np.where(band, mine_arr, 0),
-                                      err_msg=key)
-    # And the decoded alignments must be identical outright.
-    bt = np.asarray(mine["bt"])
-    ks = list(range(0, n, 97))
-    for k in ks:
-        ta = dp_common.traceback_anchored(np.asarray(ref["eo"])[k],
-                                          np.asarray(ref["idc"])[k],
-                                          int(qlens[k]), int(rlens[k]))
-        tb = dp_common.traceback_anchored_packed(bt[k], int(qlens[k]),
-                                                 int(rlens[k]))
-        assert ta == tb, k
-    from yaha_tpu.native import host as native_host
-    if native_host.available():
-        items = native_host.traceback_anchored_packed_batch(
-            bt[ks], qlens[ks], rlens[ks])
-        for idx, k in enumerate(ks):
-            want = dp_common.traceback_anchored(
-                np.asarray(ref["eo"])[k], np.asarray(ref["idc"])[k],
-                int(qlens[k]), int(rlens[k]))
-            assert items[idx] == want, k
-
-
-def test_extension_pallas_matches_xla():
-    rng = np.random.default_rng(11)
-    n, ql, bw = sw_pallas.TILE, 12, 2
-    bw2 = 2 * bw
+def _ext_problems(rng, n, ql, bw2, p_mut=0.15, junk=0.0):
+    """Mutated-copy extension problems; a `junk` share gets an unrelated
+    reference so the X-drop exits within a few rows."""
     rl = ql + 2 * bw2
     q = rng.integers(0, 4, (n, ql)).astype(np.uint8)
     qlens = rng.integers(1, ql + 1, n).astype(np.int64)
     r = np.zeros((n, rl), np.uint8)
     for k in range(n):
         L = qlens[k]
+        if rng.random() < junk:
+            r[k] = rng.integers(0, 4, rl)
+            continue
         r[k, :L] = q[k, :L]
-        m = rng.random(L) < 0.15
+        m = rng.random(L) < p_mut
         r[k, :L][m] = rng.integers(0, 4, int(m.sum()))
         r[k, L:] = rng.integers(0, 4, rl - L)
     rlens = np.minimum(qlens + bw2, rl).astype(np.int64)
+    return q, qlens, r, rlens
+
+
+def _row_mask(bt_pm, last_row):
+    rows = np.arange(bt_pm.shape[1])[None, :, None]
+    return rows <= np.asarray(last_row)[:, None, None]
+
+
+def test_extension_pallas_matches_xla():
+    rng = np.random.default_rng(11)
+    n, ql, bw = 96, 12, 2
+    bw2 = 2 * bw
+    q, qlens, r, rlens = _ext_problems(rng, n, ql, bw2)
     kw = dict(band_width=bw, x_cutoff=25, **KW)
     ref = sw_batch.batched_extension_forward(q, qlens, r, rlens, **kw)
     mine = sw_pallas.extension_forward_pallas(q, qlens, r, rlens,
@@ -106,13 +73,17 @@ def test_extension_pallas_matches_xla():
     for key in ("score", "maxi", "maxj"):
         np.testing.assert_array_equal(np.asarray(ref[key]),
                                       np.asarray(mine[key]), err_msg=key)
-    eo_u, idc_u = sw_pallas.unpack_backtrack(np.asarray(mine["bt"]), "diag")
-    np.testing.assert_array_equal(np.asarray(ref["eo"]), eo_u, err_msg="eo")
-    np.testing.assert_array_equal(np.asarray(ref["idc"]).astype(np.int32),
-                                  idc_u, err_msg="idc")
+    bt = np.asarray(sw_pallas.problem_major(mine["bt"]))
+    assert bt.shape == (n, ql + 1, 2 * bw2 + 1)
+    eo_u, idc_u = sw_pallas.unpack_backtrack(bt)
+    rows = _row_mask(bt, ref["maxi"])
+    np.testing.assert_array_equal(np.where(rows, np.asarray(ref["eo"]), 0),
+                                  np.where(rows, eo_u, 0), err_msg="eo")
+    np.testing.assert_array_equal(
+        np.where(rows, np.asarray(ref["idc"]), 0),
+        np.where(rows, idc_u, 0), err_msg="idc")
     # Packed walkers (python + native) vs the unpacked decode.
-    bt = np.asarray(mine["bt"])
-    ks = list(range(0, n, 89))
+    ks = list(range(0, n, 7))
     for k in ks:
         want = dp_common.traceback_extension(
             np.asarray(ref["eo"])[k], np.asarray(ref["idc"])[k],
@@ -122,7 +93,6 @@ def test_extension_pallas_matches_xla():
             bt[k], int(mine["maxi"][k]), int(mine["maxj"][k]),
             int(mine["score"][k]), bw2, bool(k % 2))
         assert got == want, k
-    from yaha_tpu.native import host as native_host
     if native_host.available():
         rev = np.array([k % 2 for k in ks], np.uint8)
         items = native_host.traceback_extension_packed_batch(
@@ -142,12 +112,12 @@ def test_anchored_banded_pallas_matches_xla():
     """Band-relative anchored kernel vs the XLA twin: scores, unshifted
     full-matrix arrays, and both backtrack decoders (python + native)."""
     rng = np.random.default_rng(23)
-    n, ql, rl = sw_pallas.TILE, 11, 14
+    n, ql, rl = 80, 11, 14
     q = rng.integers(0, 5, (n, ql)).astype(np.uint8)
     r = rng.integers(0, 5, (n, rl)).astype(np.uint8)
     qlens = rng.integers(1, ql + 1, n).astype(np.int64)
     rlens = rng.integers(1, rl + 1, n).astype(np.int64)
-    lbw, rbw = _bands(rng, n, qlens, rlens)
+    lbw, rbw = _bands(n, qlens, rlens)
     ref = sw_batch.batched_anchored_forward(q, qlens, r, rlens, lbw, rbw,
                                             **KW)
     wband = int((lbw + rbw).max()) + 1
@@ -155,26 +125,26 @@ def test_anchored_banded_pallas_matches_xla():
         q, qlens, r, rlens, lbw, rbw, wband=wband, interpret=True, **KW)
     np.testing.assert_array_equal(np.asarray(ref["score"]),
                                   np.asarray(mine["score"]), err_msg="score")
-    eo_b, idc_b = sw_pallas.unpack_backtrack(np.asarray(mine["bt_b"]),
-                                             "diag")
+    bt_b = np.asarray(sw_pallas.problem_major(mine["bt_b"]))
+    eo_b, idc_b = sw_pallas.unpack_backtrack(bt_b)
     eo_u, idc_u = sw_pallas.unshift_anchored_banded(
         eo_b, idc_b, np.asarray(lbw), wid=rl + 1)
-    np.testing.assert_array_equal(np.asarray(ref["eo"]), np.asarray(eo_u),
+    rows = _row_mask(np.asarray(ref["eo"]), qlens)
+    np.testing.assert_array_equal(np.where(rows, np.asarray(ref["eo"]), 0),
+                                  np.where(rows, np.asarray(eo_u), 0),
                                   err_msg="eo")
-    np.testing.assert_array_equal(np.asarray(ref["idc"]).astype(np.int32),
-                                  np.asarray(idc_u), err_msg="idc")
-    # Decoders: banded packed python + native vs the absolute decode.
-    bt_b = np.asarray(mine["bt_b"])
+    np.testing.assert_array_equal(
+        np.where(rows, np.asarray(ref["idc"]), 0),
+        np.where(rows, np.asarray(idc_u), 0), err_msg="idc")
     ref_eo = np.asarray(ref["eo"])
     ref_idc = np.asarray(ref["idc"])
-    ks = list(range(0, n, 89))
+    ks = list(range(0, n, 7))
     for k in ks:
         want = dp_common.traceback_anchored(ref_eo[k], ref_idc[k],
                                             int(qlens[k]), int(rlens[k]))
         got = dp_common.traceback_anchored_banded_packed(
             bt_b[k], int(lbw[k]), int(qlens[k]), int(rlens[k]))
         assert got == want, k
-    from yaha_tpu.native import host as native_host
     if native_host.available():
         items = native_host.traceback_anchored_banded_packed_batch(
             bt_b[ks], qlens[ks], rlens[ks], lbw[ks])
@@ -184,30 +154,64 @@ def test_anchored_banded_pallas_matches_xla():
             assert items[idx] == want, k
 
 
-def test_extension_pallas_windowed_matches_resident():
-    """The windowed-input variant (VMEM O(band); used for ql > 2048
-    where resident rows blow the 16 MB scoped VMEM limit) must be
-    bit-identical to the resident variant at any shape."""
-    rng = np.random.default_rng(23)
-    n, ql, bw = sw_pallas.TILE, 20, 2
+@pytest.mark.parametrize("n", [1, 37, 64])
+def test_wrappers_pad_batch_to_block(n):
+    """Any N works: the wrappers pad to a multiple of the block and slice
+    the outputs back, and a problem's result does not depend on the
+    batch it rides in (same answers as inside a full 64-problem run)."""
+    rng = np.random.default_rng(5)
+    bw = 2
+    q, qlens, r, rlens = _ext_problems(rng, 64, 10, 2 * bw)
+    kw = dict(band_width=bw, x_cutoff=20, **KW)
+    full = sw_pallas.extension_forward_pallas(q, qlens, r, rlens,
+                                              interpret=True, **kw)
+    part = sw_pallas.extension_forward_pallas(q[:n], qlens[:n], r[:n],
+                                              rlens[:n], interpret=True,
+                                              **kw)
+    assert part["bt"].shape == (11, 9, n)
+    for key in ("score", "maxi", "maxj"):
+        assert part[key].shape == (n,)
+        np.testing.assert_array_equal(np.asarray(full[key])[:n],
+                                      np.asarray(part[key]), err_msg=key)
+    lbw = np.full(64, 3, np.int64)
+    rbw = np.full(64, 3, np.int64) + np.maximum(rlens - qlens, 0)
+    lbw = lbw + np.maximum(qlens - rlens, 0)
+    wband = int((lbw + rbw).max()) + 1
+    fa = sw_pallas.anchored_forward_pallas_banded(
+        q, qlens, r, rlens, lbw, rbw, wband=wband, interpret=True, **KW)
+    pa = sw_pallas.anchored_forward_pallas_banded(
+        q[:n], qlens[:n], r[:n], rlens[:n], lbw[:n], rbw[:n], wband=wband,
+        interpret=True, **KW)
+    assert pa["bt_b"].shape == (11, wband, n)
+    np.testing.assert_array_equal(np.asarray(fa["score"])[:n],
+                                  np.asarray(pa["score"]))
+
+
+@pytest.mark.skipif(not native_host.available(),
+                    reason="native host library not built")
+def test_extension_xdrop_early_exit_matches_native():
+    """Junk-heavy blocks (unrelated references: the X-drop fires within a
+    few rows) stop their row loop early; scores, max cells and decoded
+    edit ops still match the native host DP exactly."""
+    rng = np.random.default_rng(3)
+    n, ql, bw = 64, 40, 2
     bw2 = 2 * bw
-    rl = ql + 2 * bw2
-    q = rng.integers(0, 4, (n, ql)).astype(np.uint8)
-    qlens = rng.integers(1, ql + 1, n).astype(np.int64)
-    r = np.zeros((n, rl), np.uint8)
+    q, qlens, r, rlens = _ext_problems(rng, n, ql, bw2, junk=0.8)
+    kw = dict(band_width=bw, x_cutoff=8, **KW)
+    ref = native_host.extension_forward(q, qlens, r, rlens, **kw)
+    mine = sw_pallas.extension_forward_pallas(q, qlens, r, rlens,
+                                              interpret=True, **kw)
+    for key in ("score", "maxi", "maxj"):
+        np.testing.assert_array_equal(np.asarray(ref[key]),
+                                      np.asarray(mine[key]), err_msg=key)
+    # The junk really exits early: most problems end far above qlen.
+    assert (np.asarray(ref["maxi"]) < qlens // 2).mean() > 0.5
+    bt = np.asarray(sw_pallas.problem_major(mine["bt"]))
     for k in range(n):
-        L = qlens[k]
-        r[k, :L] = q[k, :L]
-        m = rng.random(L) < 0.2
-        r[k, :L][m] = rng.integers(0, 4, int(m.sum()))
-        r[k, L:] = rng.integers(0, 4, rl - L)
-    rlens = np.minimum(qlens + bw2, rl).astype(np.int64)
-    kw = dict(band_width=bw, x_cutoff=25, **KW)
-    res = sw_pallas.extension_forward_pallas(q, qlens, r, rlens,
-                                             interpret=True, **kw)
-    win = sw_pallas.extension_forward_pallas(q, qlens, r, rlens,
-                                             interpret=True,
-                                             force_windowed=True, **kw)
-    for key in ("score", "maxi", "maxj", "bt"):
-        np.testing.assert_array_equal(np.asarray(res[key]),
-                                      np.asarray(win[key]), err_msg=key)
+        want = dp_common.traceback_extension(
+            ref["eo"][k], ref["idc"][k], int(ref["maxi"][k]),
+            int(ref["maxj"][k]), int(ref["score"][k]), bw2, False)
+        got = dp_common.traceback_extension_packed(
+            bt[k], int(mine["maxi"][k]), int(mine["maxj"][k]),
+            int(mine["score"][k]), bw2, False)
+        assert got == want, k

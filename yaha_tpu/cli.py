@@ -12,7 +12,7 @@ import sys
 from .config import AlignmentArgs
 
 USAGE = """\
-yaha_tpu: TPU-native split-read DNA aligner (yaha 0.1.83 compatible)
+yaha_tpu: GPU-accelerated split-read DNA aligner (yaha 0.1.83 compatible)
 
 Create an index:
   yaha_tpu -g <genomeFile (fa|fasta|fna|nib2)> [-L wordLen] [-S skipDist]
@@ -40,6 +40,8 @@ yaha_tpu extensions:
                           native: per-read C++ pipeline (default);
                           batch-xla / batch-pallas: staged engine —
                           native batch host phases + device DP
+                          (batch-pallas: Pallas GPU kernels; needs
+                          a GPU)
   --seed host|device      seed-lookup phase placement for the staged
                           jax engines (device = k-mer scan + index
                           lookup + hit sort on the accelerator)
@@ -279,7 +281,7 @@ def main(argv=None):
             # TP-analog (SURVEY.md section 2.2): hash-range shard the
             # index over N devices of a local (data x model) mesh; seed
             # lookups resolve on the owning shard and candidates merge
-            # with an all_gather over ICI.  Composes with --num-hosts
+            # with an all_gather.  Composes with --num-hosts
             # (reads range-shard across hosts; each host runs its own
             # local mesh against its index shards).
             i += 1
@@ -448,8 +450,7 @@ def _do_query(aa):
         from .native import host as _h
         engine = "native" if _h.available() else "oracle"
     # The jax engines ARE the staged path: native C++ host phases with
-    # only the DP batches on device (VERDICT round 2: no per-read
-    # Python host work on the TPU path).
+    # only the DP batches on device (no per-read Python host work).
     staged = False
     if engine in ("batch-xla", "batch-pallas"):
         from .native import host as _h
@@ -457,6 +458,13 @@ def _do_query(aa):
             print("--engine %s requires the native host library "
                   "(tools/build_native.sh)." % engine, file=sys.stderr)
             sys.exit(1)
+        from .models.staged import check_device
+        try:
+            check_device("pallas" if engine == "batch-pallas" else "xla")
+        except RuntimeError as e:
+            print(e, file=sys.stderr)
+            sys.exit(1)
+        setup_compile_cache()
         staged = True
     if engine == "native" or staged:
         from .native import host
@@ -492,8 +500,6 @@ def _do_query(aa):
         # call going through the staged native pipeline + device DP.
         from .models.staged import StagedAligner
         backend = {"batch-xla": "xla", "batch-pallas": "pallas"}[engine]
-        if engine == "batch-pallas":
-            _setup_compile_cache()
         if not getattr(aa, "batch_size", 0):
             # Smaller default batches than the pure-host engine so the
             # depth-2 prefetch has batches to overlap (host phases of
@@ -645,27 +651,31 @@ def _iter_query_chunks(path, block_size=64 << 20):
             carry = data[cut:]
 
 
-def _setup_compile_cache():
-    """Persistent XLA compilation cache: on remote-TPU links a cold
-    kernel compile costs minutes and the link-side memoization is
-    per-connection; caching executables on disk makes every run after
-    the first start warm.  JAX_COMPILATION_CACHE_DIR (or an explicit
-    jax.config setting) takes precedence."""
+def compile_cache_dir():
+    """The persistent XLA compilation cache directory: the one
+    JAX_COMPILATION_CACHE_DIR names, else `.jax_cache` at the root of
+    the checkout (a fixed path: the path is part of the cache key)."""
+    return (os.environ.get("JAX_COMPILATION_CACHE_DIR") or
+            os.path.join(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))), ".jax_cache"))
+
+
+def setup_compile_cache():
+    """Point JAX's persistent compilation cache at compile_cache_dir(),
+    so every run after the first starts with the DP kernel tiers
+    compiled.  JAX reads JAX_COMPILATION_CACHE_DIR itself; when it is
+    set, nothing else is changed."""
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return
     import jax
-    if not os.environ.get("JAX_COMPILATION_CACHE_DIR") and \
-            not jax.config.jax_compilation_cache_dir:
-        cache_dir = os.path.expanduser("~/.cache/yaha_tpu/xla")
-        try:
-            os.makedirs(cache_dir, exist_ok=True)
-            jax.config.update("jax_compilation_cache_dir", cache_dir)
-            # 0.0: the pallas DP kernels compile in ~0.8-2 s each; the
-            # default 1 s floor silently skipped persisting half of them
-            # (measured round 3), costing every later process a redundant
-            # remote compile.
-            jax.config.update(
-                "jax_persistent_cache_min_compile_time_secs", 0.0)
-        except OSError:
-            pass
+    cache_dir = compile_cache_dir()
+    try:
+        os.makedirs(cache_dir, exist_ok=True)
+    except OSError:
+        return
+    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    # Persist every kernel tier, not only those over the default 1 s.
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 
 
 def _count_records(aa):
@@ -918,9 +928,8 @@ def _run_native_engine(aa, genome, index, align_fn=None, dp_stats=None,
                 print("Throughput: %.0f reads/s." %
                       (emitted / total_s), file=sys.stderr)
             if dp_stats is not None:
-                # Launch/byte budget of the device DP phases (the
-                # tunnel-cost decomposition for BENCH; device_s includes
-                # h2d/d2h staging on a remote link).
+                # Launch/byte budget of the device DP phases (device_s
+                # includes the h2d/d2h staging).
                 print("Device DP: %d launches, %d gap + %d ext problems,"
                       " %.1f MB h2d, %.1f MB d2h, %.2fs device+transfer."
                       % (dp_stats["dp_launches"],
@@ -929,6 +938,23 @@ def _run_native_engine(aa, genome, index, align_fn=None, dp_stats=None,
                          dp_stats["h2d_bytes"] / 1e6,
                          dp_stats["d2h_bytes"] / 1e6,
                          dp_stats["device_s"]), file=sys.stderr)
+                tiers = sorted((int(k[5:]), v) for k, v in dp_stats.items()
+                               if k.startswith("gap_w"))
+                print("Device DP split: %.2fs gather+kernel, %.2fs RLE "
+                      "decode+items." % (dp_stats["dp_kernel_s"],
+                                         dp_stats["dp_decode_s"]),
+                      file=sys.stderr)
+                print("Gap dispatch: %d banded kernel, %d full-matrix "
+                      "twin; wband tiers %s." % (
+                          dp_stats["gap_banded"], dp_stats["gap_fallback"],
+                          " ".join("%d:%d" % t for t in tiers) or "-"),
+                      file=sys.stderr)
+                import jax
+                peaks = [(d.memory_stats() or {}).get("peak_bytes_in_use")
+                         for d in jax.local_devices()]
+                print("Device peak bytes: %s." % " ".join(
+                    "%s:%s" % (d.id, p) for d, p in
+                    zip(jax.local_devices(), peaks)), file=sys.stderr)
             if dist_acc is not None and dist_acc[0] > 0:
                 # Per-run distributions (Query.c:519-536 STATS report).
                 q, qlt, qlmin, qlmax = dist_acc[0:4]

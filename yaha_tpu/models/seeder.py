@@ -12,7 +12,7 @@ per-read Python anywhere.
 Reference match: Query.c:361-412 (seed loop) + QueryMatch.c:52-121
 (heap merge) — here one batched device program per chunk; the index
 placement is SURVEY.md section 2.2's TP-analog (hash-range sharded
-SO + ROA, candidates merged with an all_gather over ICI).
+SO + ROA, candidates merged with an all_gather over `model`).
 
 Correctness edges (all kept on the device path):
   * phantom-hit quirk (QueryMatch.c:57-69): device flags all-wrapped
@@ -175,10 +175,9 @@ class DeviceSeeder:
             from jax.sharding import NamedSharding, PartitionSpec as P
             from ..parallel.mesh import sharded_expand_sort
             codes_d = jax.device_put(
-                jnp.asarray(codes), NamedSharding(self.mesh,
-                                                  P("data", None)))
+                codes, NamedSharding(self.mesh, P("data", None)))
             lens_d = jax.device_put(
-                jnp.asarray(lengths), NamedSharding(self.mesh, P("data")))
+                lengths, NamedSharding(self.mesh, P("data")))
             hashes, clean = seeds_jax.batched_seed_hashes(
                 codes_d, lens_d, word_len=self.word_len)
             out = sharded_expand_sort(

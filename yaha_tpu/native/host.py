@@ -29,20 +29,25 @@ _lib = None
 def _build_lib_once():
     """First-use auto-build of libyaha_host.so (tools/build_native.sh):
     a source checkout gets the native fast path without a manual build
-    step.  Failures (no g++, read-only tree) degrade silently to the
-    Python implementations."""
+    step.  A failed build (no g++, read-only tree) prints the build's
+    output and leaves the Python implementations in place."""
+    import subprocess
+    import sys
     script = os.path.join(os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))),
         "tools", "build_native.sh")
     if not os.path.exists(script):
         return
+    print("building native library (one-time)...", file=sys.stderr)
     try:
-        import subprocess
-        import sys
-        print("building native library (one-time)...", file=sys.stderr)
-        subprocess.run(["bash", script], capture_output=True, timeout=600)
-    except Exception:
-        pass
+        r = subprocess.run(["bash", script], capture_output=True,
+                           text=True, timeout=600)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        print("native library build failed: %s" % e, file=sys.stderr)
+        return
+    if r.returncode != 0:
+        print("native library build failed (rc %d):\n%s%s"
+              % (r.returncode, r.stdout, r.stderr), file=sys.stderr)
 
 
 def _load():
@@ -568,12 +573,6 @@ def _tb_sig(lib):
             ct.c_int64, ct.c_int64, ct.c_int64,
             ct.POINTER(ct.c_uint8), ct.POINTER(ct.c_int32),
             ct.POINTER(ct.c_int64), ct.c_int64]
-        lib.yt_traceback_anchored_packed_batch.argtypes = [
-            ct.POINTER(ct.c_int8),
-            ct.POINTER(ct.c_int64), ct.POINTER(ct.c_int64),
-            ct.c_int64, ct.c_int64, ct.c_int64,
-            ct.POINTER(ct.c_uint8), ct.POINTER(ct.c_int32),
-            ct.POINTER(ct.c_int64), ct.c_int64]
         lib.yt_traceback_anchored_banded_packed_batch.argtypes = [
             ct.POINTER(ct.c_int8),
             ct.POINTER(ct.c_int64), ct.POINTER(ct.c_int64),
@@ -653,36 +652,6 @@ def traceback_extension_batch(eo, idc, maxi, maxj, score, reverse):
         # runs per problem, exceeding the (eo_h + eo_w + 2) estimate; retry
         # with a doubled buffer instead of aborting.
         cap *= 2
-    used = int(offs[n])
-    ops_b = ops[:used].tobytes().decode("latin1")
-    lens = lens[:used].tolist()
-    offs = offs.tolist()
-    return [_tb_items(ops_b, lens, offs[k], offs[k + 1]) for k in range(n)]
-
-
-def traceback_anchored_packed_batch(bt, qlens, rlens):
-    """Packed-plane twin of traceback_anchored_batch (full coordinates;
-    bt is the int8 op|BT_CD|BT_CF plane from sw_pallas)."""
-    lib = _load()
-    import ctypes as ct
-    _tb_sig(lib)
-    bt = np.ascontiguousarray(bt, np.int8)
-    n, eo_h, eo_w = bt.shape
-    qlens = np.ascontiguousarray(qlens, np.int64)
-    rlens = np.ascontiguousarray(rlens, np.int64)
-    cap = int(np.sum(qlens + rlens) + 2 * n + 8)
-    ops = np.empty(cap, np.uint8)
-    lens = np.empty(cap, np.int32)
-    offs = np.empty(n + 1, np.int64)
-
-    def p(a, t):
-        return a.ctypes.data_as(ct.POINTER(t))
-
-    rc = lib.yt_traceback_anchored_packed_batch(
-        p(bt, ct.c_int8), p(qlens, ct.c_int64), p(rlens, ct.c_int64),
-        n, eo_h, eo_w,
-        p(ops, ct.c_uint8), p(lens, ct.c_int32), p(offs, ct.c_int64), cap)
-    assert rc == 0
     used = int(offs[n])
     ops_b = ops[:used].tobytes().decode("latin1")
     lens = lens[:used].tolist()

@@ -1,11 +1,10 @@
 """On-device run-length decode of packed DP backtrack planes.
 
-The staged TPU engine's dominant device->host transfer is the backtrack
-planes (BASELINE.md round-3: 107 MB per 5k x 1kb batch even after
-row-tier compaction), while the information actually consumed by the
-host is the run-length EditOp list — a few hundred bytes per problem.
-This module performs the backtrack walk on the device and ships only the
-packed (op, run_length) items.
+The information the host consumes from a DP problem is its run-length
+EditOp list, a few hundred bytes, while the backtrack plane it is read
+from is (rows x band) bytes.  This module performs the backtrack walk on
+the device, over the kernels' problem-minor planes ([rows, band, N]) as
+they are, and ships only the packed (op, run_length) items.
 
 Walk semantics are exactly ops/dp_common.traceback_*_packed (themselves
 twins of the reference backtrack, SW.cpp:1137-1195), verified
@@ -46,98 +45,65 @@ RLE_LEN_MASK = (1 << RLE_OP_SHIFT) - 1
 JUMP_CAP = 255  # uint8 jump plane; longer runs re-merge on emit
 
 
-def _jump_plane(op, cd, up_dx):
-    """uint8 plane of per-cell whole-run jump lengths.
+def _jump_plane(op, cd):
+    """uint8 plane of per-cell whole-run jump lengths ([h, w, n]).
 
     At a cell entered with op DELETE the walk consumes the delete run
     ending there: its length is the distance to the rightmost clear-CD
     cell at-or-left in the row (the kernels store BT_CD = "run continues
     one cell left", so clear-CD marks run starts).  At a cell entered
-    with op MATCH/REPLACE the walk would step up its movement axis while
-    the op repeats; that run length is the distance to the last op
-    change along that axis.  Cells entered with other ops jump 1.
+    with op MATCH/REPLACE the walk steps up (y-1, x) while the op
+    repeats; that run length is the distance to the last op change up
+    the column.  Cells entered with other ops jump 1.
 
     op/cd arrive as int8 bit fields and prefix indices use the narrowest
     dtype that holds the axis, keeping the transients (which scale with
-    n*h*w) at a couple of bytes per plane cell.
+    h*w*n) at a couple of bytes per plane cell.
     """
-    n, h, w = op.shape
+    h, w, n = op.shape
     xdt = jnp.int16 if w < 32768 else jnp.int32
     ydt = jnp.int16 if h < 32768 else jnp.int32
-    xs = jnp.arange(w, dtype=xdt)[None, None, :]
-    last0 = jax.lax.cummax(jnp.where(cd == 0, xs, xdt(-1)), axis=2)
+    xs = jnp.arange(w, dtype=xdt)[None, :, None]
+    last0 = jax.lax.cummax(jnp.where(cd == 0, xs, xdt(-1)), axis=1)
     pd = jnp.clip(xs - last0 + 1, 1, JUMP_CAP)
 
     is_mr = (op >= OP_MATCH) & (op <= OP_REPLACE)
-    if up_dx == 0:
-        same = (op[:, 1:, :] == op[:, :-1, :]) & is_mr[:, 1:, :]
-        rst = jnp.concatenate(
-            [jnp.ones((n, 1, w), bool), ~same], axis=1)
-        ys = jnp.arange(h, dtype=ydt)[None, :, None]
-        lastr = jax.lax.cummax(jnp.where(rst, ys, ydt(-1)), axis=1)
-        mr = jnp.clip(ys - lastr + 1, 1, JUMP_CAP)
-    else:
-        # Full-coordinate layout: match steps move (y-1, x-1), so the
-        # chains are diagonal.  Shear rows so the diagonal becomes a
-        # column, cummax, unshear.  Only the small full-coordinate gap
-        # planes take this path.
-        same = (op[:, 1:, 1:] == op[:, :-1, :-1]) & is_mr[:, 1:, 1:]
-        rst = jnp.ones((n, h, w), bool).at[:, 1:, 1:].set(~same)
-        k = (xs.astype(jnp.int32)
-             - jnp.arange(h, dtype=jnp.int32)[None, :, None] + (h - 1))
-        ww = w + h - 1
-        ys = jnp.arange(h, dtype=jnp.int32)[None, :, None]
-        rst_s = jnp.ones((n, h, ww), bool)
-        rst_s = _scatter_rows(rst_s, rst, k)
-        lastr_s = jax.lax.cummax(jnp.where(rst_s, ys, -1), axis=1)
-        kb = jnp.broadcast_to(k, (n, h, w))
-        lastr = jnp.take_along_axis(lastr_s, kb, axis=2)
-        mr = jnp.clip(ys - lastr + 1, 1, JUMP_CAP)
+    same = (op[1:] == op[:-1]) & is_mr[1:]
+    rst = jnp.concatenate([jnp.ones((1, w, n), bool), ~same], axis=0)
+    ys = jnp.arange(h, dtype=ydt)[:, None, None]
+    lastr = jax.lax.cummax(jnp.where(rst, ys, ydt(-1)), axis=0)
+    mr = jnp.clip(ys - lastr + 1, 1, JUMP_CAP)
 
-    jmp = jnp.where(op == OP_DELETE, pd.astype(jnp.uint8),
-                    jnp.where(is_mr, mr.astype(jnp.uint8),
-                              jnp.uint8(1)))
-    return jmp
+    return jnp.where(op == OP_DELETE, pd.astype(jnp.uint8),
+                     jnp.where(is_mr, mr.astype(jnp.uint8), jnp.uint8(1)))
 
 
-def _scatter_rows(dst, src, k):
-    """dst[n, y, k[y, x]] = src[n, y, x] (shear helper)."""
-    n, h, w = src.shape
-    ww = dst.shape[2]
-    cols = jnp.broadcast_to(k, (n, h, w))
-    return dst.at[
-        jnp.arange(n)[:, None, None],
-        jnp.arange(h)[None, :, None],
-        cols].set(src, mode="drop")
-
-
-def _walk_loop(bt, jmp, y0, x0, active0, *, max_iters, moves):
-    """Shared walk loop; returns the final while_loop state (the raw
-    time-major emissions live in state[8], the per-problem item counts
-    in state[7]).  `moves` = (mr_dx, ins_dx): a match/replace
-    step moves (y-1, x-mr_dx) (mr_dx 0 in band layouts, 1 in full
-    coordinates); a delete step moves (y, x-L); an insert step moves
-    (y-1, x+ins_dx) (ins_dx 1 for the diagonal band-layout BT_CF
-    chains, 0 for full).
+def _walk_loop(bt, jmp, y0, x0, active0, max_iters, cap):
+    """The walk loop; returns the final while_loop state (the items in
+    walk order live in state[8] as [n, cap], the per-problem item counts
+    in state[7]).  A match/replace step moves (y-L, x); a delete step
+    moves (y, x-L); an insert step moves (y-1, x+1) along the BT_CF
+    chain.  The loop runs until every walk ended or `max_iters` (a
+    traced scalar, so slices with different bounds share one program).
 
     The bt and jump planes are fused into ONE int16 plane (op bits 0-4,
-    jump length bits 5-12) so each iteration issues a single gather —
-    the per-iteration gathers are the loop's dominant cost on TPU."""
-    mr_dx, ins_dx = moves
-    n, h, w = bt.shape
+    jump length bits 5-12) so each iteration issues a single gather."""
+    h, w, n = bt.shape
     fused = (bt.astype(jnp.int16) & 31) | (jmp.astype(jnp.int16) << 5)
-    fused_flat = fused.reshape(n, h * w)
+    fused_flat = fused.reshape(-1)
+    pcol = jnp.arange(n, dtype=jnp.int32)
 
-    def gather(plane, y, x):
-        idx = (jnp.clip(y, 0, h - 1) * w + jnp.clip(x, 0, w - 1))
-        return jnp.take_along_axis(plane, idx[:, None], axis=1)[:, 0]
+    def gather(y, x):
+        idx = ((jnp.clip(y, 0, h - 1) * w + jnp.clip(x, 0, w - 1)) * n
+               + pcol)
+        return jnp.take(fused_flat, idx)
 
     def cond(s):
         return (s[0] < max_iters) & jnp.any(s[5])
 
     def body(s):
         t, y, x, ins, prev, act, run, cur, out = s
-        bj = gather(fused_flat, y, x).astype(jnp.int32)
+        bj = gather(y, x).astype(jnp.int32)
         b = bj & 31
         code = jnp.where(ins == 1, OP_INSERT, b & 7)
         is_end = act & (ins == 0) & (code == 0)
@@ -148,25 +114,21 @@ def _walk_loop(bt, jmp, y0, x0, active0, *, max_iters, moves):
         jl = bj >> 5
         ln = jnp.where(is_i, 1, jl)
 
-        # Flush the pending run when the op changes or the walk ends.
-        # Emission is TIME-MAJOR: one O(n) row write per iteration
-        # (dynamic_update_index into out[t]).  The old per-iteration
-        # scatter into an [n, cap] buffer lowered as O(n x cap) work
-        # per step on TPU — measured 0.47 s of a 4k x 1 kb chunk's
-        # 0.93 s device time (BASELINE round 5); entries are compacted
-        # to [n, cap] AFTER the loop with one stable sort.
+        # Flush the pending run when the op changes or the walk ends:
+        # one O(n) scatter of the flushed entries to their slots (items
+        # past `cap` are dropped; the callers' cap is a structural
+        # bound).
         flush = (prev != 0) & ((do & (code != prev)) | is_end)
         entry = (prev << RLE_OP_SHIFT) | run
-        out = jax.lax.dynamic_update_index_in_dim(
-            out, jnp.where(flush, entry, 0), t, axis=0)
+        out = out.at[pcol, jnp.where(flush, cur, cap)].set(entry,
+                                                           mode="drop")
         cur = cur + flush
         new_run = do & ((code != prev) | (prev == 0))
         run = jnp.where(new_run, ln, jnp.where(do, run + ln, run))
         prev = jnp.where(do, code, jnp.where(is_end, 0, prev))
 
         y = y - jnp.where(is_mr, ln, 0) - jnp.where(is_i, 1, 0)
-        x = (x - jnp.where(is_mr, mr_dx * ln, 0)
-             - jnp.where(is_d, ln, 0) + jnp.where(is_i, ins_dx, 0))
+        x = x - jnp.where(is_d, ln, 0) + jnp.where(is_i, 1, 0)
         cf = ((b >> 4) & 1) == 1
         ins = jnp.where(is_i & cf, 1, 0)
         act = act & ~is_end
@@ -175,67 +137,43 @@ def _walk_loop(bt, jmp, y0, x0, active0, *, max_iters, moves):
     state = (jnp.int32(0), y0.astype(jnp.int32), x0.astype(jnp.int32),
              jnp.zeros(n, jnp.int32), jnp.zeros(n, jnp.int32),
              active0, jnp.zeros(n, jnp.int32), jnp.zeros(n, jnp.int32),
-             jnp.zeros((max_iters, n), jnp.int32))
+             jnp.zeros((n, cap), jnp.int32))
     return jax.lax.while_loop(cond, body, state)
 
 
-def _compact(out_tm, cap, max_iters):
-    """Compact the time-major emissions to walk-order [n, cap]: a stable
-    sort by is-zero moves each problem's entries (emitted at strictly
-    increasing t) to the front in order.  One O(n T log T) pass
-    replaces per-iteration O(n cap) scatters."""
-    ot = out_tm.T                                # [n, T]
-    key = (ot == 0).astype(jnp.int32)
-    _, packed = jax.lax.sort((key, ot), num_keys=1, dimension=1,
-                             is_stable=True)
-    if max_iters >= cap:
-        return packed[:, :cap]
-    return jnp.pad(packed, ((0, 0), (0, cap - max_iters)))
-
-
-def _rle_walk(bt, jmp, y0, x0, active0, *, cap, max_iters, moves):
-    s = _walk_loop(bt, jmp, y0, x0, active0, max_iters=max_iters,
-                   moves=moves)
-    rle = _compact(s[8], cap, max_iters)
+@functools.partial(jax.jit, static_argnames=("cap",))
+def rle_decode_band(bt, y0, x0, active0, max_iters, *, cap):
+    """Decode problem-minor band-layout packed planes [h, w, n] (the
+    extension kernel and the band-relative anchored kernel):
+    match/replace steps move (y-1, x), delete (y, x-1), insert
+    (y-1, x+1).  Twin of dp_common.traceback_extension_packed /
+    traceback_anchored_banded_packed up to the final list reversal,
+    which the consumer applies.  Returns (rle [n, cap] int32, n_ops [n])
+    with items packed op << 28 | len in walk order."""
+    jmp = _jump_plane(bt & 7, (bt >> 3) & 1)
+    s = _walk_loop(bt, jmp, y0, x0, active0, max_iters, cap)
     # A walk still active when the loop hit max_iters was TRUNCATED
     # (possible only if the caller's iteration bound is wrong); flag it
     # as n_ops = -1 so the host asserts instead of applying a partial
     # EditOpList (staged._device_rle).
     n_ops = jnp.where(s[5], jnp.int32(-1), s[7])
-    return rle, n_ops  # (rle [n, cap], n_ops [n])
+    return s[8], n_ops
 
 
-@functools.partial(jax.jit, static_argnames=("cap", "max_iters"))
-def rle_decode_band(bt, y0, x0, active0, *, cap, max_iters):
-    """Decode band-layout packed planes (the extension kernel and the
-    band-relative anchored kernel): match/replace steps move (y-1, x),
-    delete (y, x-1), insert (y-1, x+1).  Twin of
-    dp_common.traceback_extension_packed /
-    traceback_anchored_banded_packed up to the final list reversal,
-    which the consumer applies.  Returns (rle [n, cap] int32, n_ops [n])
-    with items packed op << 28 | len in walk order."""
-    jmp = _jump_plane(bt & 7, (bt >> 3) & 1, 0)
-    return _rle_walk(bt, jmp, y0, x0, active0, cap=cap,
-                     max_iters=max_iters, moves=(0, 1))
-
-
-@functools.partial(jax.jit, static_argnames=("cap", "max_iters"))
-def rle_decode_full(bt, y0, x0, active0, *, cap, max_iters):
-    """Decode full-coordinate packed planes (the full-matrix anchored
-    kernel): match/replace steps move (y-1, x-1), delete (y, x-1),
-    insert (y-1, x).  Twin of dp_common.traceback_anchored_packed up to
-    the final list reversal."""
-    jmp = _jump_plane(bt & 7, (bt >> 3) & 1, 1)
-    return _rle_walk(bt, jmp, y0, x0, active0, cap=cap,
-                     max_iters=max_iters, moves=(1, 0))
+@functools.partial(jax.jit, static_argnames=("cap",))
+def rle_decode_rows(bt, rows, y0, x0, active0, max_iters, *, cap):
+    """rle_decode_band over the problems `rows` ([L] int32) of a
+    problem-minor plane [h, w, N] and their start cells ([N] each): the
+    slice's planes are gathered inside the same program."""
+    return rle_decode_band(jnp.take(bt, rows, axis=2), y0[rows], x0[rows],
+                           active0[rows], max_iters, cap=cap)
 
 
 @functools.partial(jax.jit, static_argnames=("cap", "total_pad"))
 def gather_rle_flat(rle, src_aug, t_aug, starts_aug, *, cap, total_pad):
     """One-shot ragged gather of per-problem RLE item slots into a flat
     device array, so a whole bucket's items leave the device in a single
-    transfer (per-tier gathers each cost a blocking round trip on a
-    remote-TPU link).  src_aug / t_aug / starts_aug are the tier-sorted
+    transfer (per-tier gathers would each cost a blocking round trip).  src_aug / t_aug / starts_aug are the tier-sorted
     problem ids, their item-slot counts, and exclusive start offsets,
     augmented with one sentinel entry whose count pads the total to
     total_pad; all built host-side from the item counts."""

@@ -124,47 +124,6 @@ def traceback_extension_packed(bt, maxi, maxj, score, bw2, reverse):
     return items, added_q, added_r
 
 
-def traceback_anchored_packed(bt, qlen, rlen):
-    """Packed-plane twin of traceback_anchored (full coordinates:
-    insert chases straight up the column)."""
-    x = int(rlen)
-    y = int(qlen)
-    prev = int(bt[y][x]) & BT_OP
-    op_len = 0
-    items = []
-    while True:
-        b = int(bt[y][x])
-        code = b & BT_OP
-        if code == OP_UNKNOWN:
-            break
-        if code == OP_DELETE:
-            length = 1
-            xx = x
-            while int(bt[y][xx]) & BT_CD:
-                length += 1
-                xx -= 1
-            x -= length
-        elif code == OP_INSERT:
-            length = 1
-            yy = y
-            while int(bt[yy][x]) & BT_CF:
-                length += 1
-                yy -= 1
-            y -= length
-        else:
-            x -= 1
-            y -= 1
-            length = 1
-        if prev != code:
-            items.insert(0, [OP_CHARS[prev], op_len])
-            prev = code
-            op_len = length
-        else:
-            op_len += length
-    items.insert(0, [OP_CHARS[prev], op_len])
-    return items
-
-
 def traceback_anchored_banded_packed(bt_b, lbw, qlen, rlen):
     """Anchored packed-plane decode in band-relative layout (column
     o = j - i + lbw: delete chases left, insert chases (y-1, o+1))."""

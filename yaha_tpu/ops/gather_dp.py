@@ -1,21 +1,20 @@
 """On-device DP-problem assembly for the staged engine.
 
-At 1 kb+ the staged TPU path's device wall is h2d: every gap/extension
-problem's (q, r) code slices were materialized host-side and uploaded
-(~26 MB per 4k-read chunk at 1 kb, BENCH r3).  Both slices are just
+Every gap/extension problem's (q, r) code slices would otherwise be
+materialized host-side and uploaded per bucket.  Both slices are just
 clamped substrings of data the device can hold resident:
 
   * the genome codes (one upload per run; paged so gathers stay int32
     even past 2^31 codes — a 3.2 Gbp human genome is ~3.2 GB of u8
-    codes in HBM),
+    codes in device memory),
   * the chunk's read codes (one upload of the forward rows per chunk;
     the reverse-complement rows are derived on device).
 
 The native pipeline exports per-problem source coordinates
 (yt_batch_{gap,ext}_meta2: strand row, py_slice-clamped starts/copy
-counts) and the planes are gathered + 4-bit-packed entirely on device —
-problem bytes never cross the link in either direction (results return
-as on-device RLE items).
+counts) and the planes are gathered entirely on device — problem bytes
+never cross the host link in either direction (results return as
+on-device RLE items).
 
 Reference match: the slices reproduce Query.c / AlignExtFrag.cpp problem
 construction bit-exactly, including the zero-fill of out-of-range
@@ -58,10 +57,9 @@ def _strand_rows(fwd_p4, lens, comp):
     return jnp.stack([fwd, rev], axis=1).reshape(2 * n, lpad)
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("qg", "rg", "rpad", "pack"))
+@functools.partial(jax.jit, static_argnames=("qg", "rg", "rpad"))
 def _gather(rows2, pages, q_row, q_src, q_copy, qlen,
-            page_id, r_off, r_copy, rlen, rev, *, qg, rg, rpad, pack):
+            page_id, r_off, r_copy, rlen, rev, *, qg, rg, rpad):
     """Assemble [m, qg] / [m, rg] u8 problem planes on device.
 
     Element j of a problem reads source position pos = len-1-j when
@@ -81,14 +79,11 @@ def _gather(rows2, pages, q_row, q_src, q_copy, qlen,
     r = jnp.where(valr, pages[page_id[:, None], colr], jnp.uint8(0))
     if rpad:
         r = jnp.where(jr < rlen[:, None], r, jnp.uint8(rpad))
-    if pack:
-        q = q[:, ::2] | (q[:, 1::2] << 4)
-        r = r[:, ::2] | (r[:, 1::2] << 4)
     return q, r
 
 
 class DeviceCorpus:
-    """HBM-resident genome codes + the current chunk's strand rows."""
+    """Device-resident genome codes + the current chunk's strand rows."""
 
     def __init__(self, genome_codes: np.ndarray):
         n = len(genome_codes)
@@ -116,7 +111,7 @@ class DeviceCorpus:
                             self._comp)
 
     def gather(self, rows2, q_row, q_src, q_copy, qlen, r_src, r_copy,
-               rlen, rev=None, *, qg, rg, rpad=0, pack=True):
+               rlen, rev=None, *, qg, rg, rpad=0):
         """Device (q, r) planes for one pow2-tier bucket; all index
         arrays are 1-D host numpy of one length m."""
         m = len(q_row)
@@ -134,4 +129,4 @@ class DeviceCorpus:
             jnp.asarray(r_copy.astype(np.int32)),
             jnp.asarray(rlen.astype(np.int32)),
             jnp.asarray(rev.astype(bool)),
-            qg=int(qg), rg=int(rg), rpad=int(rpad), pack=bool(pack))
+            qg=int(qg), rg=int(rg), rpad=int(rpad))

@@ -1,22 +1,42 @@
-"""Pallas TPU kernel for the banded X-dropoff extension DP.
+"""Pallas (Triton route) kernels for the staged engine's device DP.
 
-The speed-of-light component (BASELINE.json): thousands of independent
-banded extensions per launch.  Layout maps the hardware directly:
+Two kernels, both bit-identical to their XLA twins in ops/sw_batch.py
+(tested), which are themselves bit-identical to the scalar oracle ported
+from SW.cpp:
 
-  * problems are packed onto the VPU grid — 8 sublanes x 128 lanes = 1024
-    problems per tile, every DP cell op an [8,128] elementwise op;
-  * the band (W = 4*bandWidth+1, static) is walked sequentially inside a
-    row exactly like the reference inner loop (SW.cpp:1007-1084), keeping
-    the delete-chain dependency and every tie-break bit-exact;
-  * the grid's minor dimension is the query row: VMEM scratch (PV/PF/PI,
-    trackers) persists across grid steps, and the per-row backtrack slices
-    (op codes + indel run lengths) stream to HBM through the automatic
-    output pipeline;
-  * the X-dropoff early exit is a per-problem done mask; fully-masked rows
-    still iterate but their lanes do no state updates.
+  * extension_forward_pallas — banded X-dropoff extension
+    (SW.cpp:798-1208, extension tie rules);
+  * anchored_forward_pallas_banded — anchored gap-fill DP in
+    band-relative coordinates (SW.cpp:855-871, anchored tie rules).
 
-Bit-identical to ops/sw_batch.batched_extension_forward (tested), which is
-itself bit-identical to the scalar oracle ported from SW.cpp.
+Layout (both kernels): problems run across threads, BLOCK problems per
+program, one problem per thread.  Every array a program loads or stores
+per DP step is laid out problem-minor ([..., N]), so a warp's access is
+one contiguous run of bytes: q as [QL, N], the extension reference as
+[RL, N], and the packed backtrack plane as [rows, band, N].  The query
+row loop runs inside the program (blocks on the GPU run in parallel and
+in no order, so nothing carries between programs); it stops as soon as
+every problem in the block is finished (X-dropped or past its qlen).
+
+The extension band is narrow and static (w = 4*bandWidth + 1), so its
+3 x (w + 1) int32 band state lives in registers: the column loop is
+unrolled in Python and every band cell is its own SSA value.  The
+anchored band is a pow2 tier up to 512 columns, too wide for registers,
+so its band state lives in per-problem global scratch (three
+[wband + 1, N] int32 planes, problem-minor, L1/L2 resident) and the
+column loop is a loop.  The anchored reference is read per cell at a
+per-problem offset, so it stays problem-major ([N, RL]): each thread
+walks its own row, one cache line serving 32+ consecutive cells.
+
+Packed backtrack byte: bits 0-2 the op code, bit 3 "delete run continues
+one cell left", bit 4 "insert run continues up the chain".  The int32
+run-length plane the XLA twins emit is fully reconstructible from these
+bits (run length = 1 + length of the continue-bit chain), so the kernels
+write 1 byte per band cell instead of 5.
+
+Rows past the row where a block's loop stopped are never written; the
+backtrack walks start at (maxi, maxj) or (qlen, rlen) and only move up,
+so they never read them.
 """
 from __future__ import annotations
 
@@ -25,526 +45,305 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
+from .dp_common import BT_CD, BT_CF, BT_OP  # noqa: F401 (re-exported)
 from .sw_batch import (DP_WORST, OP_UNKNOWN, OP_MATCH, OP_REPLACE,
                        OP_INSERT, OP_DELETE)
 
-SUB = 8
-LANE = 128
-TILE = SUB * LANE  # problems per tile
+# Problems per program (one per thread of a single warp).  Small blocks
+# spread a batch over the most SMs; each thread's DP chain is serial.
+BLOCK = 32
+PARAMS = plgpu.CompilerParams(num_warps=BLOCK // 32, num_stages=1)
 
-# Packed backtrack byte: bits 0-2 the op code, bit 3 "delete run
-# continues one cell left", bit 4 "insert run continues up the chain".
-# The int16/int32 run-length (IDCount) plane the XLA twins emit is fully
-# reconstructible from these bits (run length = 1 + length of the
-# continue-bit chain), so the kernels stream 1 byte per band cell to HBM
-# instead of 3-5.  With that, the stream is only ~12-22% of v5e HBM and
-# the kernel is VPU-issue-bound (ARCHITECTURE.md roofline,
-# tools/kernel_roofline.py).
-BT_OP = 7
-BT_CD = 8
-BT_CF = 16
+
+def _pad_to(x, n, value=0):
+    """Pad axis 0 of `x` to length n."""
+    if x.shape[0] == n:
+        return x
+    widths = [(0, n - x.shape[0])] + [(0, 0)] * (x.ndim - 1)
+    return jnp.pad(x, widths, constant_values=value)
 
 
 def _ext_kernel(q_ref, r_ref, qlens_ref, rlens_ref,
-                bt_out, score_out, maxi_out, maxj_out,
-                pv, pf, pi, max_score, maxi, maxj, done,
-                *, w, bw2, go, ge, rc, ms, max_gap, max_intron, x_cutoff):
-    """Resident-input variant: the whole query/reference rows live in
-    VMEM.  Valid only while (ql + rl) x 1 KB x 2 fits scoped VMEM —
-    extension_forward_pallas routes longer problems to the windowed
-    variant below."""
-    g = pl.program_id(1)
-    _ext_body(lambda i: q_ref[i - 1, 0], lambda s: r_ref[s, 0],
-              qlens_ref, rlens_ref, bt_out, score_out, maxi_out,
-              maxj_out, pv, pf, pi, max_score, maxi, maxj, done, g=g,
-              w=w, bw2=bw2, go=go, ge=ge, rc=rc, ms=ms, max_gap=max_gap,
-              max_intron=max_intron, x_cutoff=x_cutoff)
-
-
-def _ext_kernel_win(q_ref, ra_ref, rb_ref, qlens_ref, rlens_ref,
-                    bt_out, score_out, maxi_out, maxj_out,
-                    pv, pf, pi, max_score, maxi, maxj, done,
-                    *, w, bw2, go, ge, rc, ms, max_gap, max_intron,
-                    x_cutoff, w_blk):
-    """Windowed-input variant for long reads: VMEM scales with the BAND,
-    not the read.  The q block is the single row i-1; the reference
-    window [i-1, i-1+w) spans at most two w_blk-row blocks (w <= w_blk),
-    delivered as ra (block (g-1)//w_blk) and rb (the next block) — per
-    cell the local offset l = (g-1) % w_blk + j selects between them.
-    The resident variant's whole-row blocks at the ql=4096 tier cost
-    16.9 MB of double-buffered VMEM (> the 16 MB scoped limit: the
-    10 kb staged row OOMed at compile; BASELINE round 5)."""
-    g = pl.program_id(1)
-    off = jnp.maximum(g - 1, 0) % w_blk
-
-    def get_r(s):                     # s = i - 1 + j; l = off + j
-        l = s - (g - 1) + off
-        a = ra_ref[jnp.minimum(l, w_blk - 1), 0]
-        b = rb_ref[jnp.clip(l - w_blk, 0, w_blk - 1), 0]
-        return jnp.where(l < w_blk, a, b)
-
-    _ext_body(lambda i: q_ref[0, 0], get_r,
-              qlens_ref, rlens_ref, bt_out, score_out, maxi_out,
-              maxj_out, pv, pf, pi, max_score, maxi, maxj, done, g=g,
-              w=w, bw2=bw2, go=go, ge=ge, rc=rc, ms=ms, max_gap=max_gap,
-              max_intron=max_intron, x_cutoff=x_cutoff)
-
-
-def _ext_body(get_q, get_r, qlens_ref, rlens_ref,
-              bt_out, score_out, maxi_out, maxj_out,
-              pv, pf, pi, max_score, maxi, maxj, done,
-              *, g, w, bw2, go, ge, rc, ms, max_gap, max_intron,
-              x_cutoff):
-    # g: 0 = row-0 init, else query row i = g
+                bt_ref, score_ref, maxi_ref, maxj_ref,
+                *, block, ql_max, w, bw2, go, ge, rc, ms, max_gap,
+                max_intron, x_cutoff):
     i32 = jnp.int32
+    cols = pl.ds(pl.program_id(0) * block, block)
+    qlens = qlens_ref[cols]
+    rlens = rlens_ref[cols]
 
-    def full(v, dtype=i32):
-        return jnp.full((SUB, LANE), v, dtype)
+    def full(v):
+        return jnp.full((block,), v, i32)
 
-    @pl.when(g == 0)
-    def _init():
-        # Row-0 init (SW.cpp:899-933); band-edge sentinels at index w.
-        for j in range(w + 1):
-            if j < bw2:
-                pv[j] = full(DP_WORST)
-                pf[j] = full(DP_WORST)
-            elif j == bw2:
-                pv[j] = full(0)
-                pf[j] = full(0)
-            elif j < w:
-                dc = j - bw2
-                pv[j] = full(-(go + dc * ge))
-                pf[j] = full(DP_WORST)
-            else:
-                pv[j] = full(DP_WORST)
-                pf[j] = full(DP_WORST)
-            pi[j] = full(0)
-            if j < w:
-                if j > bw2:
-                    # Row-0 delete boundary: run length j - bw2, encoded
-                    # as a continue-bit chain back to column bw2 + 1.
-                    cd = BT_CD if j - bw2 >= 2 else 0
-                    bt_out[0, j, 0] = full(OP_DELETE + cd, jnp.int8)
-                else:
-                    bt_out[0, j, 0] = full(OP_UNKNOWN, jnp.int8)
-        max_score[0] = full(DP_WORST)
-        maxi[0] = full(0)
-        maxj[0] = full(0)
-        done[0] = full(0)
+    # Row-0 init (SW.cpp:899-933); band-edge sentinels at index w.
+    pv, pf, pi = [], [], []
+    for j in range(w + 1):
+        if j < bw2 or j == w:
+            pv.append(full(DP_WORST))
+            pf.append(full(DP_WORST))
+        elif j == bw2:
+            pv.append(full(0))
+            pf.append(full(0))
+        else:
+            pv.append(full(-(go + (j - bw2) * ge)))
+            pf.append(full(DP_WORST))
+        pi.append(full(0))
+        if j < w:
+            # Row-0 delete boundary: run length j - bw2, encoded as a
+            # continue-bit chain back to column bw2 + 1.
+            code = (OP_DELETE + (BT_CD if j - bw2 >= 2 else 0)
+                    if j > bw2 else OP_UNKNOWN)
+            bt_ref[0, j, cols] = jnp.full((block,), code, jnp.int8)
 
-    @pl.when(g > 0)
-    def _row():
-        i = g
-        qlens = qlens_ref[0]
-        rlens = rlens_ref[0]
-        row_active = (done[0] == 0) & (i <= qlens)
+    def row_cond(s):
+        i, done = s[0], s[-1]
+        return (i <= ql_max) & (jnp.min(done) == 0)
+
+    def row_body(s):
+        i, pv, pf, pi, max_score, maxi, maxj, done = s
+        pv, pf, pi = list(pv), list(pf), list(pi)
+        row_active = (done == 0) & (i <= qlens)
         start_col = jnp.maximum(bw2 + 1 - i, 0)
         end_col = jnp.minimum(bw2 + rlens - i, w - 1)
         edge = i <= bw2
-        edge_val = full(0) - (go + i * ge)
+        edge_val = -(go + i * ge)
+        # PVRow[startCol-1] edge write (only while i <= bw2).
+        for j in range(bw2 + 1):
+            pv[j] = jnp.where(edge & (j == bw2 - i), edge_val, pv[j])
+        q_char = q_ref[i - 1, cols].astype(i32)
 
-        # PVRow[startCol-1] edge write (only when i <= bw2).
-        @pl.when(edge)
-        def _():
-            pv[jnp.maximum(bw2 - i, 0)] = edge_val
-
-        q_char = get_q(i).astype(i32)
-
-        def col_step(j, carry):
-            pe_col, pd_col, pv_col, row_max, best_v, best_j = carry
+        pe_col = full(DP_WORST)
+        pd_col = full(0)
+        pv_col = jnp.where(edge, full(edge_val), full(DP_WORST))
+        row_max = full(DP_WORST)
+        best_v = full(DP_WORST)
+        best_j = full(0)
+        for j in range(w):
             active = row_active & (j >= start_col) & (j <= end_col)
             v = pv[j]
-            r_char = get_r(i - 1 + j).astype(i32)
-            # Arithmetic form of codesEqual to sidestep a Mosaic i1-layout
-            # issue with eq on dynamically indexed loads.
-            neq = jnp.minimum(jnp.abs(q_char - r_char), 1)
-            gscore = v + ms - neq * (ms + rc)
-            opcode = full(OP_MATCH) + neq * (OP_REPLACE - OP_MATCH)
+            r_char = r_ref[i - 1 + j, cols].astype(i32)
+            neq = q_char != r_char
+            gscore = jnp.where(neq, v - rc, v + ms)
+            opcode = jnp.where(neq, OP_REPLACE, OP_MATCH)
 
             # Delete, checked first (SW.cpp:1026-1041).
             ce = pe_col - ge
             ne = pv_col - (go + ge)
             cont_d = (ce >= ne) & (pd_col + 1 <= max_intron)
             pe_new = jnp.where(cont_d, ce, ne)
-            pd_new = jnp.where(cont_d, pd_col + 1, full(1))
+            pd_new = jnp.where(cont_d, pd_col + 1, 1)
             take_d = pe_new >= gscore   # extension tie rule: >=
             v1 = jnp.where(take_d, pe_new, gscore)
-            opcode = jnp.where(take_d, full(OP_DELETE), opcode)
+            opcode = jnp.where(take_d, OP_DELETE, opcode)
 
             # Insert (SW.cpp:1043-1060).
             cf = pf[j + 1] - ge
             nf = pv[j + 1] - (go + ge)
             cont_f = (cf >= nf) & (pi[j + 1] + 1 <= max_gap)
             f = jnp.where(cont_f, cf, nf)
-            ii = jnp.where(cont_f, pi[j + 1] + 1, full(1))
+            ii = jnp.where(cont_f, pi[j + 1] + 1, 1)
             take_f = f >= v1
             v2 = jnp.where(take_f, f, v1)
-            opcode = jnp.where(take_f, full(OP_INSERT), opcode)
+            opcode = jnp.where(take_f, OP_INSERT, opcode)
 
             pf[j] = jnp.where(active, f, pf[j])
             pi[j] = jnp.where(active, ii, pi[j])
-            # Packed backtrack: op plus gap-run continue bits (the run
-            # lengths pd_new/ii are >= 1, so min(x-1, 1) is the bit).
+            # Run lengths are >= 1, so min(x - 1, 1) is the continue bit.
             packed = (opcode + BT_CD * jnp.minimum(pd_new - 1, 1)
                       + BT_CF * jnp.minimum(ii - 1, 1))
-            # The anti-diagonal insert init lives at j == bw2 - i, which is
-            # below startCol for this row (SW.cpp:925-933); its run length
-            # i continues up the (y-1, x+1) chain of earlier init cells.
+            # The anti-diagonal insert init lives at j == bw2 - i, below
+            # startCol for this row (SW.cpp:925-933); its run length i
+            # continues up the (y-1, x+1) chain of earlier init cells.
             init_cell = edge & (j == bw2 - i)
-            ins_fill = full(OP_INSERT) + BT_CF * jnp.minimum(i - 1, 1)
-            bt_fill = jnp.where(init_cell, ins_fill, full(OP_UNKNOWN))
-            bt_out[0, j, 0] = jnp.where(active, packed,
-                                        bt_fill).astype(jnp.int8)
+            fill = jnp.where(init_cell,
+                             OP_INSERT + BT_CF * jnp.minimum(i - 1, 1),
+                             OP_UNKNOWN)
+            bt_ref[i, j, cols] = jnp.where(active, packed,
+                                           fill).astype(jnp.int8)
             pv[j] = jnp.where(active, v2, pv[j])
 
             row_max = jnp.where(active, jnp.maximum(row_max, v2), row_max)
             upd = active & (v2 > best_v)
             best_v = jnp.where(upd, v2, best_v)
-            best_j = jnp.where(upd, full(j), best_j)
-
+            best_j = jnp.where(upd, j, best_j)
             pe_col = jnp.where(active, pe_new, pe_col)
             pd_col = jnp.where(active, pd_new, pd_col)
             pv_col = jnp.where(active, v2, pv_col)
-            return pe_col, pd_col, pv_col, row_max, best_v, best_j
 
-        carry = (full(DP_WORST),                                   # PECol
-                 full(0),                                          # PDCol
-                 jnp.where(edge, edge_val, full(DP_WORST)),        # PVCol
-                 full(DP_WORST),                                   # rowMax
-                 full(DP_WORST),                                   # best V
-                 full(0))                                          # best j
-        carry = jax.lax.fori_loop(0, w, col_step, carry)
-        _, _, _, row_max, best_v, best_j = carry
+        # Global max (strict >, row-major first occurrence).
+        upd = row_active & (best_v > max_score)
+        max_score = jnp.where(upd, best_v, max_score)
+        maxi = jnp.where(upd, i, maxi)
+        maxj = jnp.where(upd, best_j, maxj)
+        # X-cutoff row break (SW.cpp:1091) and the natural end of rows.
+        newly_done = row_active & (row_max < max_score - x_cutoff)
+        done = jnp.where(newly_done | (i >= qlens), 1, done)
+        return (i + 1, tuple(pv), tuple(pf), tuple(pi), max_score, maxi,
+                maxj, done)
 
-        upd = row_active & (best_v > max_score[0])
-        max_score[0] = jnp.where(upd, best_v, max_score[0])
-        maxi[0] = jnp.where(upd, full(i), maxi[0])
-        maxj[0] = jnp.where(upd, best_j, maxj[0])
-        newly_done = row_active & (row_max < max_score[0] - x_cutoff)
-        done[0] = jnp.where(newly_done | (i >= qlens), full(1), done[0])
-
-    score_out[0, 0] = max_score[0]
-    maxi_out[0, 0] = maxi[0]
-    maxj_out[0, 0] = maxj[0]
-
-
-def _anch_kernel(q_ref, r_ref, qlens_ref, rlens_ref, lbw_ref, rbw_ref,
-                 bt_out, score_out,
-                 pv, pf, pi, score,
-                 *, wid, go, ge, rc, ms, max_gap, max_intron):
-    """Anchored (gap-fill) DP row step; masked full-matrix band semantics
-    identical to ops/sw_batch.batched_anchored_forward (SW.cpp:855-871
-    banded + full variants, anchored strict-> tie rules at
-    SW.cpp:1036,1054)."""
-    g = pl.program_id(1)  # 0 = boundary row, else query row i = g
-    i32 = jnp.int32
-
-    def full(v, dtype=i32):
-        return jnp.full((SUB, LANE), v, dtype)
-
-    rlens = rlens_ref[0]
-    rbw = rbw_ref[0]
-
-    @pl.when(g == 0)
-    def _init():
-        # Row-0 delete boundary for j in [1, min(rlen, rightBW)]
-        # (SW.cpp:899-923 full/banded inits in full-matrix coordinates).
-        pv[0] = full(0)
-        pf[0] = full(DP_WORST)
-        pi[0] = full(0)
-        bt_out[0, 0, 0] = full(OP_UNKNOWN, jnp.int8)
-        live_hi = jnp.minimum(rbw, rlens)
-
-        def init_col(j, _):
-            # Arithmetic 0/1 mask (both where() branches would be
-            # lane-replicated constants, which trips the Mosaic i1
-            # relayout bug; OP_UNKNOWN is 0 so lv* is exact).
-            lv = jnp.clip(live_hi - j + 1, 0, 1)
-            pv[j] = lv * (full(-(go)) - j * ge) + (1 - lv) * DP_WORST
-            pf[j] = full(DP_WORST)
-            pi[j] = full(0)
-            # Delete boundary of run length j: continue bit for j >= 2.
-            bt_out[0, j, 0] = (lv * (OP_DELETE + BT_CD *
-                                     jnp.minimum(j - 1, 1))
-                               ).astype(jnp.int8)
-            return 0
-        jax.lax.fori_loop(1, wid, init_col, 0)
-        score[0] = full(DP_WORST)
-
-    @pl.when(g > 0)
-    def _row():
-        i = g
-        qlens = qlens_ref[0]
-        lbw = lbw_ref[0]
-        row_active = i <= qlens
-        col0_live = row_active & (i <= lbw)
-        edge_val = full(0) - (go + i * ge)
-
-        prev0 = pv[0]
-        pv[0] = jnp.where(col0_live, edge_val, pv[0])
-        lv0 = col0_live.astype(i32)
-        # Column-0 insert boundary of run length i: chain continues
-        # straight up (full coordinates) through row i - 1's boundary.
-        bt_out[0, 0, 0] = (lv0 * (OP_INSERT + BT_CF *
-                                  jnp.minimum(i - 1, 1))).astype(jnp.int8)
-
-        q_char = q_ref[i - 1, 0].astype(i32)
-
-        def col_step(j, carry):
-            pe_col, pd_col, pv_col, prev_old, sc = carry
-            active = row_active & (j >= i - lbw) & (j <= i + rbw) & \
-                (j <= rlens)
-            old_j = pv[j]
-            v = prev_old
-            r_char = r_ref[j - 1, 0].astype(i32)
-            neq = jnp.minimum(jnp.abs(q_char - r_char), 1)
-            gscore = v + ms - neq * (ms + rc)
-            opcode = full(OP_MATCH) + neq * (OP_REPLACE - OP_MATCH)
-
-            ce = pe_col - ge
-            ne = pv_col - (go + ge)
-            cont_d = (ce >= ne) & (pd_col + 1 <= max_intron)
-            pe_new = jnp.where(cont_d, ce, ne)
-            pd_new = jnp.where(cont_d, pd_col + 1, full(1))
-            take_d = pe_new > gscore   # anchored tie rule: strict >
-            v1 = jnp.where(take_d, pe_new, gscore)
-            opcode = jnp.where(take_d, full(OP_DELETE), opcode)
-
-            cf = pf[j] - ge
-            nf = old_j - (go + ge)
-            cont_f = (cf >= nf) & (pi[j] + 1 <= max_gap)
-            f = jnp.where(cont_f, cf, nf)
-            ii = jnp.where(cont_f, pi[j] + 1, full(1))
-            take_f = f > v1
-            v2 = jnp.where(take_f, f, v1)
-            opcode = jnp.where(take_f, full(OP_INSERT), opcode)
-
-            pf[j] = jnp.where(active, f, pf[j])
-            pi[j] = jnp.where(active, ii, pi[j])
-            packed = (opcode + BT_CD * jnp.minimum(pd_new - 1, 1)
-                      + BT_CF * jnp.minimum(ii - 1, 1))
-            bt_out[0, j, 0] = jnp.where(active, packed,
-                                        full(OP_UNKNOWN)).astype(jnp.int8)
-            pv[j] = jnp.where(active, v2, pv[j])
-            # Score tracker in the loop carry, not a per-cell VMEM
-            # read-modify-write (see _anch_banded_kernel).
-            sc = jnp.where(active & (i == qlens) & (j == rlens), v2, sc)
-
-            pe_col = jnp.where(active, pe_new, pe_col)
-            pd_col = jnp.where(active, pd_new, pd_col)
-            pv_col = jnp.where(active, v2, pv_col)
-            return pe_col, pd_col, pv_col, old_j, sc
-
-        carry = (full(DP_WORST), full(0),
-                 jnp.where(i <= lbw, edge_val, full(DP_WORST)), prev0,
-                 score[0])
-        carry = jax.lax.fori_loop(1, wid, col_step, carry)
-        score[0] = carry[4]
-
-    score_out[0, 0] = score[0]
+    s = (jnp.int32(1), tuple(pv), tuple(pf), tuple(pi), full(DP_WORST),
+         full(0), full(0), full(0))
+    s = jax.lax.while_loop(row_cond, row_body, s)
+    score_ref[cols] = s[4]
+    maxi_ref[cols] = s[5]
+    maxj_ref[cols] = s[6]
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("go", "ge", "rc", "ms", "max_gap", "max_intron",
-                     "interpret"))
-def anchored_forward_pallas(q, qlens, r, rlens, left_bw, right_bw, *, go,
-                            ge, rc, ms, max_gap, max_intron,
-                            interpret=False):
-    """Pallas anchored forward; same contract as batched_anchored_forward
-    but with N a multiple of TILE=1024.
+    static_argnames=("band_width", "go", "ge", "rc", "ms", "max_gap",
+                     "max_intron", "x_cutoff", "interpret"))
+def extension_forward_pallas(q, qlens, r, rlens, *, band_width, go, ge, rc,
+                             ms, max_gap, max_intron, x_cutoff,
+                             interpret=False):
+    """Banded X-drop extension forward pass; same contract as
+    sw_batch.batched_extension_forward.
 
-    Returns score [N] and the packed backtrack bt [N, QL+1, RL+1] int8
-    (op | BT_CD | BT_CF; insert chains run straight up in full
-    coordinates).  Decode with traceback_anchored_packed walkers or
-    expand with unpack_backtrack(bt, insert_chain="up").
+    q: [N, QL] uint8, r: [N, RL] uint8 with RL >= QL + 2*bw2; any N
+    (padded to the block internally).  Returns score/maxi/maxj [N] and
+    the packed backtrack plane bt [QL+1, W, N] int8 (problem-minor;
+    problem_major() gives [N, QL+1, W]).
     """
     n, ql_max = q.shape
-    rl_max = r.shape[1]
-    assert n % TILE == 0, n
-    tiles = n // TILE
-    wid = rl_max + 1
-
-    q_t = q.reshape(tiles, SUB, LANE, ql_max).transpose(3, 0, 1, 2)
-    r_t = r.reshape(tiles, SUB, LANE, rl_max).transpose(3, 0, 1, 2)
-
-    def scal(x):
-        return x.astype(jnp.int32).reshape(tiles, SUB, LANE)
-
-    grid = (tiles, ql_max + 1)
+    bw2 = 2 * band_width
+    w = 2 * bw2 + 1
+    n_pad = -(-n // BLOCK) * BLOCK
+    q_t = _pad_to(q, n_pad).T
+    r_t = _pad_to(jnp.pad(r, ((0, 0), (bw2, w)), constant_values=255),
+                  n_pad, 255).T
     kernel = functools.partial(
-        _anch_kernel, wid=wid, go=go, ge=ge, rc=rc, ms=ms, max_gap=max_gap,
-        max_intron=max_intron)
-
-    out_shapes = (
-        jax.ShapeDtypeStruct((ql_max + 1, wid, tiles, SUB, LANE), jnp.int8),
-        jax.ShapeDtypeStruct((1, tiles, SUB, LANE), jnp.int32),
-    )
-    bt, score = pl.pallas_call(
+        _ext_kernel, block=BLOCK, ql_max=ql_max, w=w, bw2=bw2, go=go,
+        ge=ge, rc=rc, ms=ms, max_gap=max_gap, max_intron=max_intron,
+        x_cutoff=x_cutoff)
+    vec = jax.ShapeDtypeStruct((n_pad,), jnp.int32)
+    bt, score, maxi, maxj = pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((ql_max, 1, SUB, LANE), lambda t, g: (0, t, 0, 0)),
-            pl.BlockSpec((rl_max, 1, SUB, LANE), lambda t, g: (0, t, 0, 0)),
-            pl.BlockSpec((1, SUB, LANE), lambda t, g: (t, 0, 0)),
-            pl.BlockSpec((1, SUB, LANE), lambda t, g: (t, 0, 0)),
-            pl.BlockSpec((1, SUB, LANE), lambda t, g: (t, 0, 0)),
-            pl.BlockSpec((1, SUB, LANE), lambda t, g: (t, 0, 0)),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, wid, 1, SUB, LANE),
-                         lambda t, g: (g, 0, t, 0, 0)),
-            pl.BlockSpec((1, 1, SUB, LANE), lambda t, g: (0, t, 0, 0)),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((wid + 1, SUB, LANE), jnp.int32),  # PV
-            pltpu.VMEM((wid + 1, SUB, LANE), jnp.int32),  # PF
-            pltpu.VMEM((wid + 1, SUB, LANE), jnp.int32),  # PI
-            pltpu.VMEM((1, SUB, LANE), jnp.int32),        # score
-        ],
-        out_shape=out_shapes,
+        grid=(n_pad // BLOCK,),
+        out_shape=(jax.ShapeDtypeStruct((ql_max + 1, w, n_pad), jnp.int8),
+                   vec, vec, vec),
+        compiler_params=PARAMS,
         interpret=interpret,
-    )(q_t, r_t, scal(qlens), scal(rlens), scal(left_bw), scal(right_bw))
-
-    def from_tiles(x):
-        t_axis = x.ndim - 3
-        x = jnp.moveaxis(x, (t_axis, t_axis + 1, t_axis + 2), (0, 1, 2))
-        return x.reshape((n,) + x.shape[3:])
-
-    bt = from_tiles(bt)          # [N, QL+1, WID]
-    score = from_tiles(score)[:, 0]
-    return {"score": score, "bt": bt}
+        name="yaha_ext_dp",
+    )(q_t, r_t, _pad_to(qlens.astype(jnp.int32), n_pad),
+      _pad_to(rlens.astype(jnp.int32), n_pad))
+    if n_pad != n:
+        bt, score, maxi, maxj = bt[..., :n], score[:n], maxi[:n], maxj[:n]
+    return {"score": score, "maxi": maxi, "maxj": maxj, "bt": bt}
 
 
-def _anch_banded_kernel(q_ref, r2_ref, qlens_ref, rlens_ref, lbw_ref,
-                        rbw_ref, bt_out, score_out,
-                        pv, pf, pi, score,
-                        *, wband, go, ge, rc, ms, max_gap, max_intron):
+def _anch_kernel(q_ref, r_ref, qlens_ref, rlens_ref, lbw_ref, rbw_ref,
+                 bt_ref, score_ref, pv_ref, pf_ref, pi_ref,
+                 *, block, rl_max, wband, go, ge, rc, ms, max_gap,
+                 max_intron):
     """Anchored (gap-fill) DP in band-relative coordinates.
 
-    Same contract as _anch_kernel but the column sweep covers only the
-    band: offset o = j - i + lbw is row-invariant per problem, so the
-    loop is a static `wband` wide regardless of the reference length
+    Offset o = j - i + lbw is row-invariant per problem, so the column
+    sweep is a static `wband` wide regardless of the reference length
     (the reference banded variant, SW.cpp:855-871, walks the same
-    trapezoid).  Mirrors _ext_kernel's relative-frame scratch shifts:
-    diagonal (i-1, j-1) is pv[o] before overwrite, vertical (i-1, j) is
-    pv/pf/pi[o + 1], horizontal (i, j-1) is the loop carry.  The caller
-    pre-shifts the reference per problem (r2[s] = r[s - lbw]) so the
-    per-cell reference character load is at the common index i - 1 + o.
-
-    Per-problem bands narrower than wband are enforced by masks; the
-    query-start insert boundary (column j = 0, XLA twin's col0_live)
-    slides through the band at o = lbw - i and is written in-loop.
-    """
-    g = pl.program_id(1)  # 0 = boundary row, else query row i = g
+    trapezoid).  Diagonal (i-1, j-1) is pv[o] before its overwrite,
+    vertical (i-1, j) is pv/pf/pi[o + 1], horizontal (i, j-1) is the
+    loop carry.  Per-problem bands narrower than wband are enforced by
+    masks; the query-start insert boundary (column j = 0) slides through
+    the band at o = lbw - i and is written in-loop.  pv/pf/pi_ref are
+    this kernel's band-state scratch ([wband + 1, N] int32)."""
     i32 = jnp.int32
+    pid = pl.program_id(0)
+    cols = pl.ds(pid * block, block)
+    prow = pid * block + jax.lax.iota(i32, block)
+    qlens = qlens_ref[cols]
+    rlens = rlens_ref[cols]
+    lbw = lbw_ref[cols]
+    rbw = rbw_ref[cols]
+    bandw = lbw + rbw  # the problem's band occupies o in [0, bandw]
 
-    def full(v, dtype=i32):
-        return jnp.full((SUB, LANE), v, dtype)
+    def full(v):
+        return jnp.full((block,), v, i32)
 
-    rlens = rlens_ref[0]
-    lbw = lbw_ref[0]
-    rbw = rbw_ref[0]
-    bandw = lbw + rbw  # per-problem band occupies o in [0, bandw]
+    # Row-0 boundary (j0 = o - lbw): origin 0 at j0 == 0, delete boundary
+    # -(go + j0*ge) for 1 <= j0 <= min(rbw, rlen), DPWorst elsewhere
+    # (SW.cpp:899-923 in full-matrix coordinates).
+    live_hi = jnp.minimum(rbw, rlens)
 
-    @pl.when(g == 0)
-    def _init():
-        # Row-0 boundary (j0 = o - lbw): origin 0 at j0 == 0, delete
-        # boundary -(go + j0*ge) for 1 <= j0 <= min(rbw, rlen), DPWorst
-        # outside (SW.cpp:899-923 in full-matrix coordinates).
-        live_hi = jnp.minimum(rbw, rlens)
+    def init_col(o, carry):
+        j0 = o - lbw
+        live = (j0 >= 1) & (j0 <= live_hi)
+        pv_ref[o, cols] = jnp.where(j0 == 0, 0, jnp.where(
+            live, -(go + j0 * ge), DP_WORST))
+        pf_ref[o, cols] = full(DP_WORST)
+        pi_ref[o, cols] = full(0)
+        # Delete boundary of run length j0: continue bit for j0 >= 2.
+        bt_ref[0, o, cols] = jnp.where(
+            live, OP_DELETE + BT_CD * jnp.clip(j0 - 1, 0, 1),
+            OP_UNKNOWN).astype(jnp.int8)
+        return carry
+    jax.lax.fori_loop(0, wband, init_col, None)
+    pv_ref[wband, cols] = full(DP_WORST)   # band-edge sentinel
+    pf_ref[wband, cols] = full(DP_WORST)
+    pi_ref[wband, cols] = full(0)
 
-        def init_col(o, _):
-            j0 = o - lbw
-            is_origin = jnp.clip(1 - jnp.abs(j0), 0, 1)
-            lv = jnp.clip(jnp.minimum(j0, live_hi - j0 + 1), 0, 1)
-            pv[o] = (is_origin * 0 + lv * (full(-go) - j0 * ge)
-                     + (1 - is_origin - lv) * DP_WORST)
-            pf[o] = full(DP_WORST)
-            pi[o] = full(0)
-            # Delete boundary of run length j0: continue bit for j0 >= 2.
-            bt_out[0, o, 0] = (lv * (OP_DELETE + BT_CD *
-                                     jnp.clip(j0 - 1, 0, 1))
-                               ).astype(jnp.int8)
-            return 0
-        jax.lax.fori_loop(0, wband, init_col, 0)
-        pv[wband] = full(DP_WORST)   # band-edge sentinel
-        pf[wband] = full(DP_WORST)
-        pi[wband] = full(0)
-        score[0] = full(DP_WORST)
-
-    @pl.when(g > 0)
-    def _row():
-        i = g
-        qlens = qlens_ref[0]
+    def row_body(i, sc):
         row_active = i <= qlens
-        edge_val = full(0) - (go + i * ge)
-        q_char = q_ref[i - 1, 0].astype(i32)
+        edge_val = -(go + i * ge)
+        q_char = q_ref[i - 1, cols].astype(i32)
+        bound_code = OP_INSERT + BT_CF * jnp.minimum(i - 1, 1)
 
-        def col_step(o, carry):
-            pe_col, pd_col, pv_col, sc = carry
+        def col_step(o, c):
+            pe_col, pd_col, pv_col, sc, v = c   # v: diagonal (i-1, j-1)
             j = i + o - lbw
             active = row_active & (j >= 1) & (o <= bandw) & (j <= rlens)
-            # Column-0 insert boundary slides through the band frame.
-            is_bound = row_active & (j == 0) & (i <= qlens)
-            v = pv[o]                 # diagonal (i-1, j-1)
-            r_char = r2_ref[i - 1 + o, 0].astype(i32)
-            neq = jnp.minimum(jnp.abs(q_char - r_char), 1)
-            gscore = v + ms - neq * (ms + rc)
-            opcode = full(OP_MATCH) + neq * (OP_REPLACE - OP_MATCH)
+            is_bound = row_active & (j == 0)
+            up_v = pv_ref[o + 1, cols]          # vertical (i-1, j)
+            up_f = pf_ref[o + 1, cols]
+            up_i = pi_ref[o + 1, cols]
+            r_char = r_ref[prow, jnp.clip(j - 1, 0, rl_max - 1)].astype(i32)
+            neq = q_char != r_char
+            gscore = jnp.where(neq, v - rc, v + ms)
+            opcode = jnp.where(neq, OP_REPLACE, OP_MATCH)
 
             ce = pe_col - ge
             ne = pv_col - (go + ge)
             cont_d = (ce >= ne) & (pd_col + 1 <= max_intron)
             pe_new = jnp.where(cont_d, ce, ne)
-            pd_new = jnp.where(cont_d, pd_col + 1, full(1))
+            pd_new = jnp.where(cont_d, pd_col + 1, 1)
             take_d = pe_new > gscore   # anchored tie rule: strict >
             v1 = jnp.where(take_d, pe_new, gscore)
-            opcode = jnp.where(take_d, full(OP_DELETE), opcode)
+            opcode = jnp.where(take_d, OP_DELETE, opcode)
 
-            cf = pf[o + 1] - ge       # vertical (i-1, j)
-            nf = pv[o + 1] - (go + ge)
-            cont_f = (cf >= nf) & (pi[o + 1] + 1 <= max_gap)
+            cf = up_f - ge
+            nf = up_v - (go + ge)
+            cont_f = (cf >= nf) & (up_i + 1 <= max_gap)
             f = jnp.where(cont_f, cf, nf)
-            ii = jnp.where(cont_f, pi[o + 1] + 1, full(1))
-            take_f = f > v1           # anchored tie rule: strict >
+            ii = jnp.where(cont_f, up_i + 1, 1)
+            take_f = f > v1            # anchored tie rule: strict >
             v2 = jnp.where(take_f, f, v1)
-            opcode = jnp.where(take_f, full(OP_INSERT), opcode)
+            opcode = jnp.where(take_f, OP_INSERT, opcode)
 
-            pf[o] = jnp.where(active, f, full(DP_WORST))
-            pi[o] = jnp.where(active, ii, full(0))
-            lb = is_bound.astype(i32)
+            pf_ref[o, cols] = jnp.where(active, f, DP_WORST)
+            pi_ref[o, cols] = jnp.where(active, ii, 0)
+            # Run lengths are >= 1, so min(x - 1, 1) is the continue bit.
             packed = (opcode + BT_CD * jnp.minimum(pd_new - 1, 1)
                       + BT_CF * jnp.minimum(ii - 1, 1))
-            # Sliding insert boundary of run length i: chain continues at
-            # (i-1, o+1) — the row above's boundary cell in band frame.
-            bt_out[0, o, 0] = jnp.where(
-                active, packed,
-                lb * (OP_INSERT + BT_CF * jnp.minimum(i - 1, 1))
+            # Sliding insert boundary of run length i: its chain
+            # continues at (i-1, o+1), the row above's boundary cell.
+            bt_ref[i, o, cols] = jnp.where(
+                active, packed, jnp.where(is_bound, bound_code, OP_UNKNOWN)
             ).astype(jnp.int8)
-            pv[o] = jnp.where(active, v2,
-                              jnp.where(is_bound, edge_val, full(DP_WORST)))
-            # Final score lives in the loop CARRY, not the score[0]
-            # scratch: a per-cell read-modify-write of VMEM is a
-            # loop-carried memory dependency that stalls every band
-            # column (~6x per-cell cost measured; the extension kernel
-            # keeps its trackers in the carry for the same reason).
+            edge_v = jnp.where(is_bound, edge_val, DP_WORST)
+            pv_ref[o, cols] = jnp.where(active, v2, edge_v)
             sc = jnp.where(active & (i == qlens) & (j == rlens), v2, sc)
+            return (jnp.where(active, pe_new, DP_WORST),
+                    jnp.where(active, pd_new, 0),
+                    jnp.where(active, v2, edge_v), sc, up_v)
 
-            pe_col = jnp.where(active, pe_new, full(DP_WORST))
-            pd_col = jnp.where(active, pd_new, full(0))
-            pv_col = jnp.where(active, v2,
-                               jnp.where(is_bound, edge_val,
-                                         full(DP_WORST)))
-            return pe_col, pd_col, pv_col, sc
+        c = (full(DP_WORST), full(0), full(DP_WORST), sc, pv_ref[0, cols])
+        return jax.lax.fori_loop(0, wband, col_step, c)[3]
 
-        carry = (full(DP_WORST), full(0), full(DP_WORST), score[0])
-        carry = jax.lax.fori_loop(0, wband, col_step, carry)
-        score[0] = carry[3]
-
-    score_out[0, 0] = score[0]
+    # Rows past the block's longest query are never needed.
+    rows = jnp.max(qlens)
+    score_ref[cols] = jax.lax.fori_loop(1, rows + 1, row_body,
+                                        full(DP_WORST))
 
 
 @functools.partial(
@@ -554,165 +353,63 @@ def _anch_banded_kernel(q_ref, r2_ref, qlens_ref, rlens_ref, lbw_ref,
 def anchored_forward_pallas_banded(q, qlens, r, rlens, left_bw, right_bw,
                                    *, wband, go, ge, rc, ms, max_gap,
                                    max_intron, interpret=False):
-    """Band-relative anchored forward: static per-row work O(wband)
-    instead of O(rl_max), and VMEM scales with the band — large gap
-    fills with narrow bands no longer hit the rl<=512 VMEM cap.
+    """Band-relative anchored forward; same contract as
+    sw_batch.batched_anchored_forward, with static per-row work
+    O(wband) instead of O(rl_max).
 
     wband must be a static int >= max(left_bw + right_bw) + 1 (callers
-    bucket it to limit recompiles).  Returns {"score", "bt_b"} with the
-    packed backtrack plane in banded layout [N, QL+1, WBAND] (column
-    o = j - i + lbw); decode with traceback_anchored_banded_packed, or
-    expand with unpack_backtrack + unshift_anchored_banded to get arrays
-    identical to batched_anchored_forward's.
+    bucket it to limit recompiles).  Any N (padded to the block
+    internally).  Returns {"score" [N], "bt_b" [QL+1, WBAND, N]} with
+    the packed backtrack plane in problem-minor banded layout (column
+    o = j - i + lbw); decode with decode_jax.rle_decode_band, or expand
+    with problem_major + unpack_backtrack + unshift_anchored_banded to
+    get arrays identical to batched_anchored_forward's.
     """
     n, ql_max = q.shape
     rl_max = r.shape[1]
-    assert n % TILE == 0, n
-    tiles = n // TILE
-    wid = rl_max + 1
-    lbw32 = left_bw.astype(jnp.int32)
+    n_pad = -(-n // BLOCK) * BLOCK
 
-    # Pre-shift each problem's reference so the kernel's per-cell load is
-    # at the common index s = i - 1 + o:  r2[s] = r[s - lbw].  The shift
-    # is a LOG-STEP conditional roll, not a gather: a per-row
-    # take_along_axis here measured 2.9 ms of the entry's 3.3 ms per
-    # 1024 x 192x256 launch (the DP kernel itself is ~0.36 ms — the
-    # "4.5 Gcells/s banded-anchored kernel" was 89% this gather;
-    # BASELINE round 5).  Rolls compose additively mod w2 and the valid
-    # window [lbw, lbw + rl) never sees wrapped lanes, so k conditional
-    # whole-array rolls implement every per-problem shift exactly.
-    w2 = ql_max + wband
-    s_idx = jnp.arange(w2)[None, :] - lbw32[:, None]
-    valid_r = (s_idx >= 0) & (s_idx < rl_max)
-    base = (r[:, :w2] if rl_max >= w2 else
-            jnp.pad(r, ((0, 0), (0, w2 - rl_max))))
-    for k in range((max(wband - 1, 1)).bit_length()):
-        bit = ((lbw32 >> k) & 1).astype(bool)[:, None]
-        base = jnp.where(bit, jnp.roll(base, 1 << k, axis=1), base)
-    r2 = jnp.where(valid_r, base, jnp.uint8(255))
+    def vec(x):
+        return _pad_to(x.astype(jnp.int32), n_pad)
 
-    q_t = q.reshape(tiles, SUB, LANE, ql_max).transpose(3, 0, 1, 2)
-    r2_t = r2.reshape(tiles, SUB, LANE, w2).transpose(3, 0, 1, 2)
-
-    def scal(x):
-        return x.astype(jnp.int32).reshape(tiles, SUB, LANE)
-
-    grid = (tiles, ql_max + 1)
     kernel = functools.partial(
-        _anch_banded_kernel, wband=wband, go=go, ge=ge, rc=rc, ms=ms,
-        max_gap=max_gap, max_intron=max_intron)
-
-    out_shapes = (
-        jax.ShapeDtypeStruct((ql_max + 1, wband, tiles, SUB, LANE),
-                             jnp.int8),
-        jax.ShapeDtypeStruct((1, tiles, SUB, LANE), jnp.int32),
-    )
-    bt_b, score = pl.pallas_call(
+        _anch_kernel, block=BLOCK, rl_max=rl_max, wband=wband, go=go,
+        ge=ge, rc=rc, ms=ms, max_gap=max_gap, max_intron=max_intron)
+    state = jax.ShapeDtypeStruct((wband + 1, n_pad), jnp.int32)
+    bt_b, score, _, _, _ = pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((ql_max, 1, SUB, LANE), lambda t, g: (0, t, 0, 0)),
-            pl.BlockSpec((w2, 1, SUB, LANE), lambda t, g: (0, t, 0, 0)),
-            pl.BlockSpec((1, SUB, LANE), lambda t, g: (t, 0, 0)),
-            pl.BlockSpec((1, SUB, LANE), lambda t, g: (t, 0, 0)),
-            pl.BlockSpec((1, SUB, LANE), lambda t, g: (t, 0, 0)),
-            pl.BlockSpec((1, SUB, LANE), lambda t, g: (t, 0, 0)),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, wband, 1, SUB, LANE),
-                         lambda t, g: (g, 0, t, 0, 0)),
-            pl.BlockSpec((1, 1, SUB, LANE), lambda t, g: (0, t, 0, 0)),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((wband + 1, SUB, LANE), jnp.int32),  # PV
-            pltpu.VMEM((wband + 1, SUB, LANE), jnp.int32),  # PF
-            pltpu.VMEM((wband + 1, SUB, LANE), jnp.int32),  # PI
-            pltpu.VMEM((1, SUB, LANE), jnp.int32),          # score
-        ],
-        out_shape=out_shapes,
+        grid=(n_pad // BLOCK,),
+        out_shape=(jax.ShapeDtypeStruct((ql_max + 1, wband, n_pad),
+                                        jnp.int8),
+                   jax.ShapeDtypeStruct((n_pad,), jnp.int32),
+                   state, state, state),
+        compiler_params=PARAMS,
         interpret=interpret,
-    )(q_t, r2_t, scal(qlens), scal(rlens), scal(left_bw), scal(right_bw))
-
-    def from_tiles(x):
-        t_axis = x.ndim - 3
-        x = jnp.moveaxis(x, (t_axis, t_axis + 1, t_axis + 2), (0, 1, 2))
-        return x.reshape((n,) + x.shape[3:])
-
-    bt_b = from_tiles(bt_b)        # [N, QL+1, WBAND]
-    score = from_tiles(score)[:, 0]
-    # Banded layout goes straight to the host decoders
-    # (traceback_anchored_banded_packed): the backtrack walk touches
-    # O(path) cells, so materializing [N, QL+1, RL+1] full-matrix arrays
-    # (and shipping them off-device) would cost more than the DP itself
-    # for long gap fills.  unpack_backtrack + unshift_anchored_banded
-    # exist for parity tests.
+        name="yaha_gap_dp",
+    )(_pad_to(q, n_pad).T, _pad_to(r, n_pad), vec(qlens), vec(rlens),
+      vec(left_bw), vec(right_bw))
+    if n_pad != n:
+        bt_b, score = bt_b[..., :n], score[:n]
     return {"score": score, "bt_b": bt_b}
 
 
-def _unpack4(p):
-    """Unpack two 4-bit codes per byte: [n, g/2] uint8 -> [n, g].
-    DNA codes are 4-bit (Math.inl:37-117), so problem uploads travel
-    packed — host->device bytes halve on a remote-TPU link — and unpack
-    on-device before the kernels.  Byte 255 pads unpack to code 15,
-    which no query code uses (codes are 0-14), so padding stays a
-    guaranteed mismatch exactly like the unpacked 255 fill."""
-    lo = p & jnp.uint8(0xF)
-    hi = p >> 4
-    return jnp.stack([lo, hi], axis=-1).reshape(p.shape[0],
-                                                2 * p.shape[1])
+@jax.jit
+def problem_major(bt):
+    """[rows, band, N] problem-minor plane -> [N, rows, band]."""
+    return jnp.transpose(bt, (2, 0, 1))
 
 
-def pack4_host(a):
-    """numpy host-side packer (codes <= 15; pad bytes 255 stay 255)."""
-    import numpy as np
-    return (a[:, ::2] | (a[:, 1::2] << 4)).astype(np.uint8)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("band_width", "go", "ge", "rc", "ms", "max_gap",
-                     "max_intron", "x_cutoff", "interpret"))
-def extension_forward_pallas_p4(qp, qlens, rp, rlens, **kw):
-    """extension_forward_pallas with 4-bit-packed q/r uploads."""
-    return extension_forward_pallas(_unpack4(qp), qlens, _unpack4(rp),
-                                    rlens, **kw)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("go", "ge", "rc", "ms", "max_gap", "max_intron",
-                     "interpret"))
-def anchored_forward_pallas_p4(qp, qlens, rp, rlens, left_bw, right_bw,
-                               **kw):
-    """anchored_forward_pallas with 4-bit-packed q/r uploads."""
-    return anchored_forward_pallas(_unpack4(qp), qlens, _unpack4(rp),
-                                   rlens, left_bw, right_bw, **kw)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("wband", "go", "ge", "rc", "ms", "max_gap",
-                     "max_intron", "interpret"))
-def anchored_forward_pallas_banded_p4(qp, qlens, rp, rlens, left_bw,
-                                      right_bw, **kw):
-    """anchored_forward_pallas_banded with 4-bit-packed q/r uploads."""
-    return anchored_forward_pallas_banded(_unpack4(qp), qlens,
-                                          _unpack4(rp), rlens, left_bw,
-                                          right_bw, **kw)
-
-
-def unpack_backtrack(bt, insert_chain):
+def unpack_backtrack(bt):
     """Expand a packed backtrack plane to the XLA twins' (eo, idc).
 
-    `bt` is [..., H, W] int8 with op in bits 0-2, BT_CD (delete run
-    continues one cell left in the same row) in bit 3, and BT_CF (insert
-    run continues up the chain) in bit 4.  `insert_chain` is "diag" for
-    the band-relative layouts (extension and banded-anchored: the chain
-    ascends (y-1, x+1)) or "up" for full-coordinate anchored (the chain
-    ascends (y-1, x)).  Run lengths are 1 + the length of the continue-
-    bit chain, which is exactly the forward pass's pd/ii counters, so the
-    reconstructed idc plane is bit-identical to the unpacked twins'.
-    Test/debug helper — production paths walk the packed plane directly.
+    `bt` is problem-major [..., H, W] int8 with op in bits 0-2, BT_CD
+    (delete run continues one cell left in the same row) in bit 3, and
+    BT_CF (insert run continues up the chain) in bit 4.  The insert
+    chain ascends (y-1, x+1) in both band layouts.  Run lengths are 1 +
+    the length of the continue-bit chain, which is exactly the forward
+    pass's pd/ii counters, so the reconstructed idc plane is
+    bit-identical to the twins'.  Test/debug helper; production paths
+    walk the packed plane directly.
     """
     import numpy as np
     bt = np.asarray(bt)
@@ -724,15 +421,11 @@ def unpack_backtrack(bt, insert_chain):
     # Delete runs along each row: pd[x] = x - (last x' <= x with cd 0) + 1.
     last0 = np.maximum.accumulate(np.where(cd == 0, idx, -1), axis=-1)
     pd = idx - last0 + 1
-    # Insert runs up the chain: ii[y] = cf[y] ? ii[y-1 at chain col] + 1 : 1.
+    # Insert runs up the chain: ii[y] = cf[y] ? ii[y-1, x+1] + 1 : 1.
     ii = np.ones(bt.shape, np.int64)
     for y in range(1, h):
-        if insert_chain == "diag":
-            ii[..., y, :-1] = np.where(cf[..., y, :-1] == 1,
-                                       ii[..., y - 1, 1:] + 1, 1)
-        else:
-            ii[..., y, :] = np.where(cf[..., y, :] == 1,
-                                     ii[..., y - 1, :] + 1, 1)
+        ii[..., y, :-1] = np.where(cf[..., y, :-1] == 1,
+                                   ii[..., y - 1, 1:] + 1, 1)
     idc = np.where(eo == OP_INSERT, ii,
                    np.where(eo == OP_DELETE, pd, 0)).astype(np.int32)
     return eo, idc
@@ -740,9 +433,9 @@ def unpack_backtrack(bt, insert_chain):
 
 @functools.partial(jax.jit, static_argnames=("wid",))
 def unshift_anchored_banded(eo_b, idc_b, left_bw, wid):
-    """Test helper: expand banded-layout backtrack arrays to full-matrix
-    coordinates (absolute (i, j) lives at o = j - i + lbw), matching
-    batched_anchored_forward's eo/idc exactly."""
+    """Test helper: expand problem-major banded-layout backtrack arrays
+    to full-matrix coordinates (absolute (i, j) lives at
+    o = j - i + lbw), matching batched_anchored_forward's eo/idc."""
     n, qlp1, wband = eo_b.shape
     lbw32 = left_bw.astype(jnp.int32)
     ii = jnp.arange(qlp1)[None, :, None]
@@ -754,116 +447,3 @@ def unshift_anchored_banded(eo_b, idc_b, left_bw, wid):
                    jnp.int8(OP_UNKNOWN))
     idc = jnp.where(valid, jnp.take_along_axis(idc_b, oc, axis=2), 0)
     return eo, idc
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("band_width", "go", "ge", "rc", "ms", "max_gap",
-                     "max_intron", "x_cutoff", "interpret",
-                     "force_windowed"))
-def extension_forward_pallas(q, qlens, r, rlens, *, band_width, go, ge, rc,
-                             ms, max_gap, max_intron, x_cutoff,
-                             interpret=False, force_windowed=False):
-    """Pallas forward pass; same contract as batched_extension_forward but
-    with N a multiple of TILE=1024.
-
-    q: [N, QL] uint8, r: [N, RL] with RL >= QL + 2*bw2.
-    Returns score/maxi/maxj [N] and the packed backtrack plane
-    bt [N, QL+1, W] int8 (op | BT_CD | BT_CF); decode with
-    dp_common.traceback_extension_packed / the native packed walker, or
-    expand to the XLA twin's (eo, idc) with unpack_backtrack.
-    """
-    n, ql_max = q.shape
-    assert n % TILE == 0, n
-    tiles = n // TILE
-    bw2 = 2 * band_width
-    w = 2 * bw2 + 1
-
-    # Device layout: [len, tiles, SUB, LANE].
-    q_t = q.reshape(tiles, SUB, LANE, ql_max).transpose(3, 0, 1, 2)
-    r_pad = jnp.pad(r, ((0, 0), (bw2, w)), constant_values=255)
-    r_t = r_pad.reshape(tiles, SUB, LANE,
-                        r_pad.shape[1]).transpose(3, 0, 1, 2)
-    qlens_t = qlens.astype(jnp.int32).reshape(tiles, SUB, LANE)
-    rlens_t = rlens.astype(jnp.int32).reshape(tiles, SUB, LANE)
-
-    grid = (tiles, ql_max + 1)
-    # Resident inputs double-buffer (ql + rl) KB of VMEM per tile —
-    # 16.9 MB at the ql=4096 tier, over the 16 MB scoped limit.  Long
-    # tiers use the windowed variant: q as a 1-row block, r as two
-    # sliding w_blk-row blocks, so VMEM is O(band) however long the
-    # read (force_windowed exists for parity tests at small shapes).
-    windowed = force_windowed or ql_max > 2048
-    rl_pad = r_t.shape[0]
-    if windowed:
-        w_blk = max(256, 1 << (w - 1).bit_length())
-        nblk = -(-(ql_max + w) // w_blk) + 2
-        r_t = jnp.pad(r_t, ((0, nblk * w_blk - rl_pad), (0, 0), (0, 0),
-                            (0, 0)), constant_values=255)
-        kernel = functools.partial(
-            _ext_kernel_win, w=w, bw2=bw2, go=go, ge=ge, rc=rc, ms=ms,
-            max_gap=max_gap, max_intron=max_intron, x_cutoff=x_cutoff,
-            w_blk=w_blk)
-        in_specs = [
-            pl.BlockSpec((1, 1, SUB, LANE),
-                         lambda t, g: (jnp.maximum(g - 1, 0), t, 0, 0)),
-            pl.BlockSpec((w_blk, 1, SUB, LANE),
-                         lambda t, g: (jnp.maximum(g - 1, 0) // w_blk,
-                                       t, 0, 0)),
-            pl.BlockSpec((w_blk, 1, SUB, LANE),
-                         lambda t, g: (jnp.maximum(g - 1, 0) // w_blk + 1,
-                                       t, 0, 0)),
-            pl.BlockSpec((1, SUB, LANE), lambda t, g: (t, 0, 0)),
-            pl.BlockSpec((1, SUB, LANE), lambda t, g: (t, 0, 0)),
-        ]
-        args = (q_t, r_t, r_t, qlens_t, rlens_t)
-    else:
-        kernel = functools.partial(
-            _ext_kernel, w=w, bw2=bw2, go=go, ge=ge, rc=rc, ms=ms,
-            max_gap=max_gap, max_intron=max_intron, x_cutoff=x_cutoff)
-        in_specs = [
-            pl.BlockSpec((ql_max, 1, SUB, LANE), lambda t, g: (0, t, 0, 0)),
-            pl.BlockSpec((rl_pad, 1, SUB, LANE), lambda t, g: (0, t, 0, 0)),
-            pl.BlockSpec((1, SUB, LANE), lambda t, g: (t, 0, 0)),
-            pl.BlockSpec((1, SUB, LANE), lambda t, g: (t, 0, 0)),
-        ]
-        args = (q_t, r_t, qlens_t, rlens_t)
-    out_shapes = (
-        jax.ShapeDtypeStruct((ql_max + 1, w, tiles, SUB, LANE), jnp.int8),
-        jax.ShapeDtypeStruct((1, tiles, SUB, LANE), jnp.int32),
-        jax.ShapeDtypeStruct((1, tiles, SUB, LANE), jnp.int32),
-        jax.ShapeDtypeStruct((1, tiles, SUB, LANE), jnp.int32),
-    )
-    bt, score, maxi, maxj = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=(
-            pl.BlockSpec((1, w, 1, SUB, LANE), lambda t, g: (g, 0, t, 0, 0)),
-            pl.BlockSpec((1, 1, SUB, LANE), lambda t, g: (0, t, 0, 0)),
-            pl.BlockSpec((1, 1, SUB, LANE), lambda t, g: (0, t, 0, 0)),
-            pl.BlockSpec((1, 1, SUB, LANE), lambda t, g: (0, t, 0, 0)),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((w + 2, SUB, LANE), jnp.int32),  # PV
-            pltpu.VMEM((w + 2, SUB, LANE), jnp.int32),  # PF
-            pltpu.VMEM((w + 2, SUB, LANE), jnp.int32),  # PI
-            pltpu.VMEM((1, SUB, LANE), jnp.int32),      # maxScore
-            pltpu.VMEM((1, SUB, LANE), jnp.int32),      # maxi
-            pltpu.VMEM((1, SUB, LANE), jnp.int32),      # maxj
-            pltpu.VMEM((1, SUB, LANE), jnp.int32),      # done
-        ],
-        out_shape=out_shapes,
-        interpret=interpret,
-    )(*args)
-
-    def from_tiles(x):
-        t_axis = x.ndim - 3
-        x = jnp.moveaxis(x, (t_axis, t_axis + 1, t_axis + 2), (0, 1, 2))
-        return x.reshape((n,) + x.shape[3:])
-
-    bt = from_tiles(bt)          # [N, QL+1, W]
-    score = from_tiles(score)[:, 0]
-    maxi = from_tiles(maxi)[:, 0]
-    maxj = from_tiles(maxj)[:, 0]
-    return {"score": score, "maxi": maxi, "maxj": maxj, "bt": bt}

@@ -2,14 +2,15 @@
 
 The reference scales with pthreads over a shared mmap'd index
 (Query.c:34-38,642-691) and has no distributed story (SURVEY.md section
-2.2).  The TPU design replaces that with a 2-D mesh:
+2.2).  The device design replaces that with a 2-D mesh:
 
   * `data` axis — read batches are sharded across chips; each shard runs
     the full seed->extend pipeline on its reads (the primary scaling axis).
   * `model` axis — the k-mer index is hash-range sharded: each model shard
     holds SO rows for [lo, hi) hash values plus its slice of the ROA, so a
-    ~16 GB human-genome index (guide section 3) fits across chips.  Seed
-    lookups ride ICI: every data shard's hashes hit all model shards
+    ~16 GB human-genome index (guide section 3) fits across devices.
+    Seed lookups cross the interconnect: every data shard's hashes hit
+    all model shards
     (replicated compute on masked ranges) and per-shard hit counts are
     combined with psum over `model`.
 
@@ -75,7 +76,8 @@ class ShardedIndex:
     """Hash-range sharded SO + ROA resident across the `model` axis.
 
     The TP-analog (SURVEY.md section 2.2): a human-genome index (~4.3 GB
-    SO + ~12 GB ROA at L15) exceeds one chip's HBM, so shard m of M owns
+    SO + ~12 GB ROA at L15) is a large share of one device's memory, so
+    shard m of M owns
     hash range [m*per, (m+1)*per) -- its SO rows rebased to LOCAL ROA
     offsets -- plus exactly the ROA slice those rows address.  Every seed
     lookup resolves on the owning shard and candidates are merged across
@@ -119,9 +121,12 @@ class ShardedIndex:
         from jax.sharding import NamedSharding
         sh = NamedSharding(mesh, P("model", None))
         sh1 = NamedSharding(mesh, P("model"))
-        self.so_dev = jax.device_put(jnp.asarray(self.so_local), sh)
-        self.roa_dev = jax.device_put(jnp.asarray(self.roa_sh), sh)
-        self.lo_dev = jax.device_put(jnp.asarray(self.hash_lo), sh1)
+        # device_put of the host arrays sends each device only its own
+        # shard (a jnp.asarray first would stage the whole index on one
+        # device).
+        self.so_dev = jax.device_put(self.so_local, sh)
+        self.roa_dev = jax.device_put(self.roa_sh, sh)
+        self.lo_dev = jax.device_put(self.hash_lo, sh1)
         if free_host:
             self.so_local = None
             self.roa_sh = None
@@ -135,7 +140,7 @@ def sharded_expand_sort(mesh: Mesh, hashes, clean, sidx: ShardedIndex, *,
     hashes/clean: [B, N] (B sharded over `data`, replicated over `model`).
     Each (data, model) device expands the hits whose hash falls in its
     model shard's range into a [b, C] buffer, all_gathers the per-shard
-    buffers over `model` (ICI), and sorts the merged (diag, qo) list --
+    buffers over `model`, and sorts the merged (diag, qo) list --
     the device twin of ops/seeds_jax.expand_sort_hits_device with the
     index distributed.  Returns the same dict, replicated over `model`.
     """
